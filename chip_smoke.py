@@ -1,24 +1,39 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA H100.
 
-Drives the port's retrieval path (intel_extension_for_transformers_tpu_torch)
-at BGE-base width on random weights made from a seed, and checks each
-hand-written kernel against its plain PyTorch version on the card:
+Drives the port (intel_extension_for_transformers_tpu_torch) on random
+weights made from seeds: the retrieval path at BGE-base width, then INT4
+Llama generation behind the chat API and long-window scoring at Llama-2-7B
+width; and checks each hand-written kernel against its plain PyTorch version
+on the card:
 
   0. probe the card (sm_90), print its name and power limit, TF32 off;
-  1. build the kernels from csrc/ with nvcc (sm_90a);
-  2. K1 (int4 WOQ GEMM) and K5 (scan + per-tile top-2) against their plain
-     versions at the path's shapes, with errors and CUDA-event times;
+  1. build the kernels from csrc/ with nvcc (sm_90a), one process per source;
+  2. K1 (int4 WOQ GEMM), K5 (scan + per-tile top-2), K3 (w32 decode GEMM)
+     and K4 (flash attention) against their plain versions at the paths'
+     shapes, with errors and CUDA-event times;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
      cross-encoder rerank → QA prompt, over docs/ and the repository's *.md;
   4. the flat-search workload of bench.py: 100k x 768 clustered embeddings in
      an int4 + bf16-shadow index; recall@10 at B = 256, QPS at B = 4096, and
-     the two-tier int4 path at B = 16.
+     the two-tier int4 path at B = 16;
+  5. chat: build_chatbot over a Llama-2-7B-width model quantized to int4
+     (RTN, g = 128), with phase 3's agent as the retrieval plugin;
+     predict_stream on 4 queries (2 greedy, 2 sampled) on the khalf model
+     (K1), then prepare_for_inference and the 2 greedy queries again on the
+     w32 model (K3); the two held against each other product by product and
+     at the first step's logits, and again with faults planted in the w32
+     weights, which the bars must reject;
+  6. scoring: evaluate_perplexity over 4 windows of 2048 byte tokens on the
+     w32 model (K4 in every layer, K3 in every product), and one window held
+     against the plain-attention forward, and again with a fault planted in
+     the flash route's causal mask.
 
-Each kernel wrapper counts its launches; the counts are zeroed before phase
-3 and read after phase 4, and every kernel must have launched there. The
-line before the last is a JSON object of the kernels' numbers; the last line
-is {"ok": true, "device": {...}}. Any failed check raises, and the script
-exits non-zero without that line.
+Each kernel wrapper counts its launches. The counts are zeroed just before
+each main-path phase (3-4, 5's generations, 6) and read just after it, and
+every kernel must have launched on the main path. The line before the last
+is a JSON object of the kernels' numbers; the last line is {"ok": true,
+"device": {...}}. Any failed check raises, and the script exits non-zero
+without that line.
 
     python3 chip_smoke.py
 """
@@ -45,11 +60,43 @@ QUERIES = [
     "How does the serving engine batch requests?",
     "What does the bf16 shadow copy of the index buy?",
 ]
+NEW_TOKENS = 32  # per chat request
+SCORE_WINDOW = 2048  # tokens per perplexity window
+SCORE_WINDOWS = 4
+# Logits of the bf16 Llama-2-7B-width model by two routes through the same
+# weights (K1 rounds q*s to bf16, K3 keeps exact products; flash attention
+# keeps f32 probabilities, the plain attention rounds them to bf16). Through
+# 32 random-weight layers the rounding differences grow to 6.5-7.7% of the
+# largest logit (cosine 0.9980-0.9982) for khalf vs w32, with the prompt
+# the repository's documents give, and 5.2% (0.9990) for flash vs plain:
+# the bars are cosine >= 0.995 and max |diff| <= 12% of max |logit|. A
+# fault in one product of one layer moves the logits little more than that
+# rounding does (8-10%, cosine 0.9956-0.9963), so the khalf and w32 routes
+# are also held product by product: each int4 product of the w32 model on
+# the khalf run's inputs, against the khalf output, relative error <= 1e-2
+# (bf16 rounding of q*s and of the output, ~3e-3). Faults are planted in
+# each route; the product bar must reject the w32 ones, the logit bars the
+# flash one.
+LOGIT_COS_BAR = 0.995
+LOGIT_REL_BAR = 0.12
+PRODUCT_BAR = 1e-2
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def logits_within_bars(torch, what: str, a, b) -> bool:
+    """Print the gap between two logit tensors → whether it is within the bars above."""
+    a, b = a.float().reshape(-1), b.float().reshape(-1)
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    ok = bool(torch.isfinite(a).all()) and diff <= LOGIT_REL_BAR * scale and cos >= LOGIT_COS_BAR
+    print(f"{what}: max |diff| {diff:.4f} of max |logit| {scale:.3f} (bar {LOGIT_REL_BAR:.0%}); "
+          f"cosine {cos:.6f} (bar {LOGIT_COS_BAR}); {'within' if ok else 'outside'} the bars")
+    return ok
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -80,10 +127,19 @@ def main() -> int:
         bert_init_params,
     )
     from intel_extension_for_transformers_tpu_torch.ops import kernels
-    from intel_extension_for_transformers_tpu_torch.ops.packing import quantize_groupwise
+    from intel_extension_for_transformers_tpu_torch.ops.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+    from intel_extension_for_transformers_tpu_torch.ops.packing import (
+        quantize_groupwise,
+        to_decode_layout,
+    )
     from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import (
         woq_int4_cuda,
         woq_matmul_plain,
+        woq_w32_cuda,
+        woq_w32_plain,
     )
     from intel_extension_for_transformers_tpu_torch.ops.scan_topk import (
         scan_top2_cuda,
@@ -152,6 +208,9 @@ def main() -> int:
     k1_case("bge qkvo asym", 64, 768, 768, 128, "int4", "asym", f32, f32, f32)
     k1_case("bge qkvo nf4", 64, 768, 768, 128, "nf4", "sym", bf16, bf16, f32)
     k1_case("index scan", 16, 768, 100_000, 64, "int4", "sym", bf16, bf16, bf16)
+    # the khalf Llama-2-7B decode products (phase 5's first run)
+    for K, N, lbl in ((4096, 4096, "llama qkvo"), (4096, 11008, "llama gate/up"), (11008, 4096, "llama down")):
+        k1_case(lbl, 1, K, N, 128, "int4", "sym", bf16, bf16, f32)
 
     k5_cases = []
 
@@ -185,9 +244,94 @@ def main() -> int:
     k5_case(4096, 100_000, 768, 70_000)
     torch.cuda.empty_cache()
 
-    # ---- main path: counts from here to the end of phase 4 ----
-    woq_int4_cuda.launches = 0
-    scan_top2_cuda.launches = 0
+    # K3 at the Llama-2-7B products (K -> N), g = 128: f32 outputs within
+    # 1e-4 relative (the m1 branch subtracts 136 * sum(x) from the dot in
+    # f32, so ~5 bits cancel and the two summation orders differ by ~1e-5);
+    # bf16 outputs within 2e-3 (one bf16 rounding of the output)
+    k3_cases = []
+
+    def k3_case(label, M, qt, x_dtype, iters):
+        gen = torch.Generator(device=dev).manual_seed(M + qt.K + qt.N)
+        x = torch.randn(M, qt.K, generator=gen, device=dev).to(x_dtype)
+        got = woq_w32_cuda(x, qt, x_dtype)
+        want = woq_w32_plain(x, qt, x_dtype)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        mabs = float((got.float() - want.float()).abs().max())
+        bar = 1e-4 if x_dtype == f32 else 2e-3
+        ms = cuda_ms(torch, lambda: woq_w32_cuda(x, qt, x_dtype), iters)
+        plain_ms = cuda_ms(torch, lambda: woq_w32_plain(x, qt, x_dtype), iters)
+        case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
+                    dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
+                    ms=ms, plain_ms=plain_ms)
+        print("K3 " + json.dumps(case))
+        check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K3 {label} M={M} rel {rel} > {bar}")
+        k3_cases.append(case)
+
+    for K, N, lbl in ((4096, 4096, "qkvo"), (4096, 11008, "gate/up"), (11008, 4096, "down"),
+                      (4096, 32000, "lm_head shape")):
+        w = torch.randn(K, N, generator=torch.Generator(device=dev).manual_seed(K + N), device=dev) * 0.02
+        qt = to_decode_layout(quantize_groupwise(w, "int4", "sym", 128))
+        del w
+        for M in (1, 16, 2048):
+            for dt in (f32, bf16):
+                k3_case(lbl, M, qt, dt, 3 if M == 2048 else 20)
+    w = torch.randn(4096, 4096, generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 0.02
+    k3_case("qkvo asym", 16, to_decode_layout(quantize_groupwise(w, "int4", "asym", 128)), bf16, 20)
+    k3_case("qkvo g32 fold", 64, to_decode_layout(quantize_groupwise(w, "int4", "sym", 32)), bf16, 20)
+    del w, qt
+    torch.cuda.empty_cache()
+
+    # K4 against the plain f32 attention: f32 within 1e-5 absolute (unit
+    # normal inputs, sums in another order); bf16 within 2e-3 relative (one
+    # bf16 rounding of the output)
+    k4_cases = []
+
+    def k4_case(label, B, T, S, H, Hkv, D, causal, q_offset, dtype):
+        gen = torch.Generator(device=dev).manual_seed(T + S + H + Hkv + q_offset)
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, q_offset=q_offset)
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        mabs = float((got.float() - want.float()).abs().max())
+        rel = rel_err(got, want)
+        ok = mabs <= 1e-5 if dtype == f32 else rel <= 2e-3
+        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw), 5)
+        plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), 5)
+        case = dict(label=label, B=B, T=T, S=S, H=H, Hkv=Hkv, D=D, causal=causal, q_offset=q_offset,
+                    dtype=str(dtype)[6:], max_abs_err=mabs, rel_err=rel, ms=ms, plain_ms=plain_ms)
+        print("K4 " + json.dumps(case))
+        check(ok and bool(torch.isfinite(got.float()).all()), f"K4 {label} {dtype}: {mabs}, {rel}")
+        k4_cases.append(case)
+
+    for dt in (f32, bf16):
+        k4_case("llama-2-7b window", 1, 2048, 2048, 32, 32, 128, True, 0, dt)
+        k4_case("gqa 32/8", 1, 2048, 2048, 32, 8, 128, True, 0, dt)
+        k4_case("ragged S", 1, 1500, 1500, 32, 32, 128, True, 0, dt)
+        k4_case("q_offset", 1, 512, 2048, 32, 32, 128, True, 1536, dt)
+        k4_case("non-causal", 1, 1024, 1500, 32, 32, 128, False, 0, dt)
+    torch.cuda.empty_cache()
+
+    launches = {"woq_int4": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0}
+    counters = {"woq_int4": woq_int4_cuda, "scan_top2": scan_top2_cuda,
+                "woq_w32": woq_w32_cuda, "flash_attention": flash_attention_cuda}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def add_counts(phase_name):
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+        print(f"{phase_name} launches: {json.dumps(got)}")
+        return got
+
+    # ---- main path, phases 3-4: counts from here to the end of phase 4 ----
+    zero_counts()
 
     # ---- phase 3: the RAG path at BGE-base width ----
     cfg = BertConfig.bge_base()
@@ -290,8 +434,8 @@ def main() -> int:
           f"data {gen_s:.1f} s, add {add_s:.2f} s")
     check(recall >= 0.99, f"recall@10 {recall} >= 0.99")
 
-    launches = {"woq_int4": woq_int4_cuda.launches, "scan_top2": scan_top2_cuda.launches}
-    check(all(n > 0 for n in launches.values()), f"every kernel launched on the main path: {launches}")
+    rag_counts = add_counts("phases 3-4")
+    check(rag_counts["woq_int4"] > 0 and rag_counts["scan_top2"] > 0, "K1 and K5 ran in phases 3-4")
 
     # the reranker's scores on the card against the plain path on the CPU
     query, hits, out = reranked[0]
@@ -304,8 +448,247 @@ def main() -> int:
     print(f"rerank card vs CPU plain path: max |score diff| {gap:.2e} over {len(gpu_scores)} hits")
     check(gap <= 1e-3, f"rerank scores agree with the CPU plain path ({gap})")
 
+    del index, docs, queries, qb, oracle, cpu_scores
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: chat at Llama-2-7B width, khalf (K1) then w32 (K3) ----
+    from intel_extension_for_transformers_tpu_torch.evaluation import evaluate_perplexity
+    from intel_extension_for_transformers_tpu_torch.models import generation
+    from intel_extension_for_transformers_tpu_torch.models import llama as llama_module
+    from intel_extension_for_transformers_tpu_torch.models.llama import (
+        LlamaConfig,
+        init_kv_cache,
+        llama_apply,
+        llama_init_params,
+    )
+    from intel_extension_for_transformers_tpu_torch.models.tokenization import ByteTokenizer
+    from intel_extension_for_transformers_tpu_torch.neural_chat import (
+        GenerationConfig,
+        LoadingModelConfig,
+        PipelineConfig,
+        build_chatbot,
+    )
+    from intel_extension_for_transformers_tpu_torch.ops import quant_matmul
+    from intel_extension_for_transformers_tpu_torch.ops.packing import prepare_for_inference
+    from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import WOQLinear, woq_matmul_ref
+
+    lcfg = LlamaConfig.llama2_7b()
+    tok = ByteTokenizer()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    llama = llama_init_params(torch.Generator(device=dev).manual_seed(11), lcfg, dtype=bf16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model_bytes = sum(p.numel() * p.element_size() for p in llama.parameters())
+    t0 = time.perf_counter()
+    # build_chatbot quantizes the bf16 model in place, one linear layer at a
+    # time, so the peak stays near the bf16 model's 13.5 GB
+    bot = build_chatbot(PipelineConfig(
+        model_name_or_path="Llama-2-7b-chat (random weights)",
+        loading_config=LoadingModelConfig(
+            preloaded=(llama, lcfg, tok),
+            optimization_config=RtnConfig(weight_dtype="int4", group_size=128),
+        ),
+        generation_config=GenerationConfig(max_new_tokens=NEW_TOKENS),
+        plugins={"retrieval": {"agent": agent}},
+    ))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    check(bot is not None, "build_chatbot returned a chatbot")
+    n_woq = sum(isinstance(m, WOQLinear) for m in bot.params.modules())
+    check(n_woq == 7 * lcfg.num_hidden_layers, f"every q/k/v/o/gate/up/down is int4 ({n_woq})")
+    grown = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+    print(f"llama: {lcfg.num_hidden_layers} layers x {lcfg.hidden_size} (random weights, seed 11); "
+          f"bf16 init {init_s:.1f} s; int4 RTN g128 of {n_woq} linears in {quant_s:.1f} s; "
+          f"device memory: bf16 model {model_bytes / 2**30:.2f} GiB, peak {grown:.2f} GiB over the "
+          f"{base_bytes / 2**30:.2f} GiB held before")
+    # quantizing one linear layer at a time frees its bf16 weight as the int4
+    # copy lands, so the peak is the bf16 model plus one weight's f32
+    # temporaries (~1 GiB); keeping the float layers, or an f32 copy of the
+    # model, would add a third or more
+    check(grown <= 1.2 * model_bytes / 2**30, f"peak while building the model: {grown:.2f} GiB")
+
+    real_stream = generation.generate_stream
+    gen_log = []
+
+    def traced_stream(model, config, input_ids, sampling=None, **kw):
+        rec = {"ids": [int(i) for i in np.asarray(input_ids).reshape(-1)], "times": [], "tokens": []}
+        gen_log.append(rec)
+        k1_0, k3_0 = woq_int4_cuda.launches, woq_w32_cuda.launches
+        torch.cuda.synchronize()
+        rec["t0"] = time.perf_counter()
+        try:
+            for t in real_stream(model, config, input_ids, sampling, **kw):
+                rec["times"].append(time.perf_counter())  # after the token's copy to the host
+                rec["tokens"].append(int(t[0]))
+                yield t
+        finally:
+            rec["k1"] = woq_int4_cuda.launches - k1_0
+            rec["k3"] = woq_w32_cuda.launches - k3_0
+
+    generation.generate_stream = traced_stream
+    greedy = GenerationConfig(max_new_tokens=NEW_TOKENS, do_sample=False, repetition_penalty=1.0)
+    sampled = GenerationConfig(max_new_tokens=NEW_TOKENS)  # the JAX defaults: T 0.9, top-k 40, top-p 0.75
+    plan = [(QUERIES[0], greedy, "greedy"), (QUERIES[1], greedy, "greedy"),
+            (QUERIES[2], sampled, "sampled"), (QUERIES[3], sampled, "sampled")]
+
+    def run_requests(layout, requests):
+        recs = []
+        for query, gc, mode in requests:
+            n0 = len(gen_log)
+            t = time.perf_counter()
+            text = "".join(bot.predict_stream(query, gc))
+            check(len(gen_log) == n0 + 1, "one generate_stream per request")
+            rec = gen_log[n0]
+            n = len(rec["tokens"])
+            check(n >= 2, f"at least two tokens generated ({n})")
+            rec.update(
+                layout=layout, mode=mode, prompt_tokens=len(rec["ids"]), new_tokens=n,
+                retrieval_s=rec["t0"] - t, ttft_ms=(rec["times"][0] - rec["t0"]) * 1e3,
+                decode_ms_per_token=(rec["times"][-1] - rec["times"][0]) * 1e3 / (n - 1),
+                tokens_per_s=n / (rec["times"][-1] - rec["t0"]), text_chars=len(text),
+            )
+            prompt = tok.decode(rec["ids"])
+            print("chat " + json.dumps({k: rec[k] for k in (
+                "layout", "mode", "prompt_tokens", "new_tokens", "retrieval_s", "ttft_ms",
+                "decode_ms_per_token", "tokens_per_s", "k1", "k3", "text_chars")}))
+            check("### Context:" in prompt and prompt.endswith("### Response:"),
+                  "the prompt carries the retrieved context")
+            recs.append(rec)
+        return recs
+
+    def first_logits(ids, depth=None, exact_weights=False):
+        """The first sampling step's logits: a prefill into a fresh cache,
+        through the first `depth` layers only, or through products with
+        the exactly dequantized f32 weights (woq_matmul_ref)."""
+        layers, real_matmul = bot.params.layers, quant_matmul.woq_matmul
+        if depth is not None:
+            bot.params.layers = layers[:depth]
+        if exact_weights:
+            quant_matmul.woq_matmul = lambda x, qt, out_dtype=None: woq_matmul_ref(x, qt, out_dtype)
+        try:
+            cache = init_kv_cache(lcfg, 1, len(ids) + NEW_TOKENS, device=dev)
+            logits, _ = llama_apply(bot.params, lcfg, torch.tensor([ids], device=dev), cache)
+        finally:
+            bot.params.layers, quant_matmul.woq_matmul = layers, real_matmul
+        return logits[0, -1].float()
+
+    zero_counts()
+    recs_khalf = run_requests("khalf", plan)
+    add_counts("phase 5 (khalf)")
+    check(all(r["k1"] > 0 and r["k3"] == 0 for r in recs_khalf), "K1, not K3, ran inside generate_stream")
+    probe = recs_khalf[0]["ids"]
+    # every int4 product of the khalf first step, with its input and output
+    products = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: products.append((mod, args[0], out)))
+             for m in bot.params.modules() if isinstance(m, WOQLinear)]
+    try:
+        logits_khalf = first_logits(probe)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(products) == n_woq, f"the first step ran {len(products)} int4 products")
+    logits_khalf_1 = first_logits(probe, depth=1)
+    logits_exact = first_logits(probe, exact_weights=True)
+
+    t0 = time.perf_counter()
+    prepare_for_inference(bot.params)
+    torch.cuda.synchronize()
+    print(f"prepare_for_inference: w32 repack of {n_woq} linears in {time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    recs_w32 = run_requests("w32", plan[:2])
+    add_counts("phase 5 (w32)")
+    check(all(r["k3"] > 0 and r["k1"] == 0 for r in recs_w32), "K3, not K1, ran inside generate_stream")
+    logits_w32, logits_w32_1 = first_logits(probe), first_logits(probe, depth=1)
+    generation.generate_stream = real_stream
+
+    # the prompt (< 1024 tokens) runs K1 on the khalf model, which rounds
+    # q*s to bf16, and K3 on the w32 model, which keeps exact products and
+    # f32 scales; the bf16 residual stream carries the difference on
+    def product_gap(mod, x, y):  # the w32 product (K3) on the khalf input, against K1's output
+        return rel_err(mod(x), y)
+
+    gaps = [product_gap(*p) for p in products]
+    print(f"khalf vs w32, each of the {n_woq} int4 products of the first step on the khalf inputs: "
+          f"max relative error {max(gaps):.2e}, median {sorted(gaps)[len(gaps) // 2]:.2e} (bar {PRODUCT_BAR})")
+    check(max(gaps) <= PRODUCT_BAR, f"every w32 product within {PRODUCT_BAR} of the khalf one")
+    check(logits_within_bars(torch, "khalf vs w32 first-step logits, 1 layer", logits_khalf_1, logits_w32_1),
+          "khalf vs w32 logits after 1 layer")
+    check(logits_within_bars(torch, f"khalf vs w32 first-step logits, {lcfg.num_hidden_layers} layers",
+                             logits_khalf, logits_w32), "khalf vs w32 logits")
+    for name, got in (("khalf", logits_khalf), ("w32", logits_w32)):
+        print(f"{name} vs exactly dequantized f32 weights: max |diff| "
+              f"{float((got - logits_exact).abs().max()):.4f}")
+
+    # faults a w32 layout or scale bug would make, each in one product of
+    # the middle layer only: the product bar must reject them; what they do
+    # to the logits is reported
+    def rotate_slots(words):  # nibble slot s -> s + 1: the planes' rows land one plane off
+        w = words.to(torch.int64) & 0xFFFFFFFF
+        w = ((w << 4) | (w >> 28)) & 0xFFFFFFFF
+        return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+    mid = bot.params.layers[lcfg.num_hidden_layers // 2]
+    for what, lin, name, fault in (
+        ("down scale rows one group late", mid.mlp.down, "scales", lambda t: torch.roll(t, 1, 0)),
+        ("q word slots rotated", mid.attention.q, "data", rotate_slots),
+    ):
+        sound = getattr(lin, name)
+        setattr(lin, name, fault(sound))
+        try:
+            gap = max(product_gap(*p) for p in products if p[0] is lin)
+            faulty = first_logits(probe)
+        finally:
+            setattr(lin, name, sound)
+        what = f"layer {lcfg.num_hidden_layers // 2} {what}"
+        print(f"planted fault, {what}: that product's relative error {gap:.3f} (bar {PRODUCT_BAR})")
+        check(gap > PRODUCT_BAR, f"the product bar rejects the planted fault: {what}")
+        logits_within_bars(torch, f"planted fault, {what}: khalf vs w32 first-step logits",
+                           faulty, logits_khalf)
+    del products
+    agree = [sum(a == b for a, b in zip(rk["tokens"], rw["tokens"])) for rk, rw in zip(recs_khalf, recs_w32)]
+    print(f"khalf vs w32: greedy tokens agreeing: {agree} of {NEW_TOKENS} (reported, not required)")
+
+    # ---- phase 6: scoring, 2048-token windows on the w32 model (K4, K3) ----
+    corpus = "\n".join(open(p, encoding="utf-8").read() for p in md_files)
+    ids = tok.encode(corpus, add_bos=False)[: SCORE_WINDOWS * SCORE_WINDOW]
+    check(len(ids) == SCORE_WINDOWS * SCORE_WINDOW, f"{len(ids)} byte tokens for the windows")
+    zero_counts()
+    t0 = time.perf_counter()
+    ppl = evaluate_perplexity(bot.params, lcfg, ids, window=SCORE_WINDOW, stride=SCORE_WINDOW, batch_size=1)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    c6 = add_counts("phase 6")
+    print(f"scoring: perplexity {ppl['perplexity']:.2f} (random weights) over {ppl['tokens']} tokens in "
+          f"{SCORE_WINDOWS} windows of {SCORE_WINDOW}; {score_s:.2f} s "
+          f"({ppl['tokens'] / score_s:.1f} tokens/s)")
+    check(np.isfinite(ppl["perplexity"]), "perplexity is finite")
+    check(c6["flash_attention"] == SCORE_WINDOWS * lcfg.num_hidden_layers, "K4 ran once per layer per window")
+    check(c6["woq_w32"] == SCORE_WINDOWS * n_woq and c6["woq_int4"] == 0, "K3 ran every int4 product")
+
+    window = torch.tensor([ids[:SCORE_WINDOW]], device=dev)
+    logits_flash, _ = llama_apply(bot.params, lcfg, window)
+    logits_plain, _ = llama_apply(bot.params, lcfg, window, attention_mask=torch.ones_like(window))
+    check(logits_within_bars(torch, "window logits, flash vs plain attention", logits_flash, logits_plain),
+          "flash vs plain attention logits")
+    # an off-by-one causal mask in the flash route (each query sees one key
+    # ahead) must fail the bars
+    real_flash = llama_module.flash_attention
+    llama_module.flash_attention = lambda q, k, v, **kw: real_flash(q, k, v, **{**kw, "q_offset": 1})
+    try:
+        logits_fault, _ = llama_apply(bot.params, lcfg, window)
+    finally:
+        llama_module.flash_attention = real_flash
+    check(not logits_within_bars(torch, "planted fault, window logits, flash with the causal mask one key "
+                                        "late vs plain attention", logits_fault, logits_plain),
+          "the logit bars reject the planted attention fault")
+    check(all(n > 0 for n in launches.values()), f"every kernel launched on the main path: {launches}")
+
     k1_index = next(c for c in k1_cases if c["label"] == "index scan")
     k5_full = k5_cases[0]
+    k3_decode = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
+    k4_window = next(c for c in k4_cases if c["label"] == "llama-2-7b window" and c["dtype"] == "bfloat16")
     summary = {"kernels": [
         {"name": "woq_int4", "route": "cuda", "source": f"{PKG}/csrc/woq_int4.cu",
          "replaces": "intel_extension_for_transformers_tpu/ops/quant_matmul.py:87",
@@ -317,6 +700,16 @@ def main() -> int:
          "launches": launches["scan_top2"],
          "max_abs_err": max(c["max_abs_err"] for c in k5_cases),
          "ms": k5_full["ms"], "plain_ms": k5_full["plain_ms"]},
+        {"name": "woq_w32", "route": "cuda", "source": f"{PKG}/csrc/woq_w32.cu",
+         "replaces": "intel_extension_for_transformers_tpu/ops/quant_matmul.py:263",
+         "launches": launches["woq_w32"],
+         "max_abs_err": max(c["max_abs_err"] for c in k3_cases),
+         "ms": k3_decode["ms"], "plain_ms": k3_decode["plain_ms"]},
+        {"name": "flash_attention", "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
+         "replaces": "intel_extension_for_transformers_tpu/ops/flash_attention.py:38",
+         "launches": launches["flash_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in k4_cases),
+         "ms": k4_window["ms"], "plain_ms": k4_window["plain_ms"]},
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

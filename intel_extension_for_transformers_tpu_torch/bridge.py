@@ -9,7 +9,11 @@ lets tests run both packages on the same weights and the same index:
   when the tree has a "classifier". The tree is the JAX params tree with
   numpy leaves (nested dicts and lists); a quantized kernel is a dict with
   the `QuantizedTensor` fields (data, scales, zeros, pre_scale as arrays or
-  None; weight_dtype, scheme, group_size, K, N).
+  None; weight_dtype, scheme, group_size, K, N, and layout "khalf" or
+  "w32", "khalf" when absent).
+- `llama_from_numpy(tree, config)` → a `LlamaModel` from the JAX Llama
+  params tree in the same form (khalf or w32 kernels; q/k/v biases where
+  the tree has them, as Qwen2 checkpoints do).
 - `flat_index_state(meta, arrays)` → a `FlatIndex` from the JAX index's
   metadata (the `index.json` fields, plus `capacity`) and arrays (data,
   scales, mean, shadow, rotation, vectors).
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from intel_extension_for_transformers_tpu_torch.models.bert import BertConfig, BertModel
+from intel_extension_for_transformers_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from intel_extension_for_transformers_tpu_torch.ops.packing import QuantizedTensor
 from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import WOQLinear
 from intel_extension_for_transformers_tpu_torch.retrieval.index import FlatIndex
@@ -47,7 +52,8 @@ def _linear(kernel, bias, device) -> nn.Module:
             f: None if kernel.get(f) is None else _tensor(kernel[f], device)
             for f in ("data", "scales", "zeros", "pre_scale")
         }
-        return WOQLinear(QuantizedTensor(**arrays, **{f: kernel[f] for f in _QT_META}), b)
+        meta = {f: kernel[f] for f in _QT_META}
+        return WOQLinear(QuantizedTensor(**arrays, **meta, layout=kernel.get("layout", "khalf")), b)
     w = _tensor(kernel, device)
     lin = nn.Linear(w.shape[0], w.shape[1], bias=b is not None, device=device)
     with torch.no_grad():
@@ -78,6 +84,25 @@ def params_from_numpy(tree: Mapping, config: BertConfig, *, device="cpu") -> Ber
     if cls is CrossEncoder:
         head = tree["classifier"]
         model.classifier = _linear(head["kernel"], head.get("bias"), device)
+    return model.eval()
+
+
+def llama_from_numpy(tree: Mapping, config: LlamaConfig, *, device="cpu") -> LlamaModel:
+    """JAX Llama params with numpy leaves → the port's `LlamaModel`."""
+    with torch.device("meta"):
+        model = LlamaModel(config)
+    model.to_empty(device=device)
+    with torch.no_grad():
+        model.embed_tokens.copy_(_tensor(tree["embed_tokens"], device))
+        model.final_norm.copy_(_tensor(tree["final_norm"], device))
+        for layer, lt in zip(model.layers, tree["layers"], strict=True):
+            layer.input_norm.copy_(_tensor(lt["input_norm"], device))
+            layer.post_norm.copy_(_tensor(lt["post_norm"], device))
+            for block_name in ("attention", "mlp"):
+                block, bt = getattr(layer, block_name), lt[block_name]
+                for name, _ in list(block.named_children()):
+                    setattr(block, name, _linear(bt[name]["kernel"], bt[name].get("bias"), device))
+    model.lm_head = _linear(tree["lm_head"]["kernel"], tree["lm_head"].get("bias"), device)
     return model.eval()
 
 

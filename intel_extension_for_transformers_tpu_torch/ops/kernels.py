@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `csrc/` are compiled at first use by nvcc into one shared
-library with a plain C interface, loaded with ctypes: pointers and the CUDA
+The sources under `csrc/` are compiled at first use by nvcc, one process per
+source and all at once, then linked into one shared library with a plain C
+interface, loaded with ctypes: pointers and the CUDA
 stream go in as `c_void_p`, and each entry point returns `cudaGetLastError()`
 after its launch. The library's name carries a hash of the sources, so an
 edited kernel is rebuilt and a stale build is never loaded. Nothing is built
@@ -23,17 +24,23 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, w, scales, zeros, codebook, out, M, N, K, group_size, scheme,
     # x_bf16, out_bf16, stream
     "itx_woq_int4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, docs, vals, ids, B, N, D, size, n_tile, stream
     "itx_scan_top2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, words, scales, zeros, out, M, N, K, Kp, group_size, asym, m1,
+    # x_bf16, out_bf16, stream
+    "itx_woq_w32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, B, T, S, H, Hkv, D, scale, causal, q_offset, bf16, stream
+    "itx_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
 }
 
 
@@ -67,14 +74,29 @@ def load_kernels() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        tmp = lib_path.with_name(f"{tag}.so.tmp")
+        if not errors:
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                errors.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if errors:
+            raise RuntimeError("\n".join(errors))
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():

@@ -13,17 +13,24 @@ unchanged.
   schemes) have shape (K//group_size, N). group_size must divide K//2, so a
   group never straddles the half split.
 
+* **w32 decode layout.** `to_decode_layout` repacks an int4 khalf tensor
+  into int32 words of 8 biased nibbles (`_khalf_to_w32`), the layout the w32
+  decode GEMM (K3, `csrc/woq_w32.cu`) reads; `prepare_for_inference` does it
+  once for every eligible layer of a model before serving. The words are
+  bit-identical to the JAX package's.
+
 Supported dtypes: "int4"/"int3"/"int2" (sym or asym, in the nibble layout),
 "int8" (unpacked), "nf4"/"fp4" (codebook indices, absmax scale per group).
-The w32 decode layout and the stacked (MoE) variants are not ported yet.
+The stacked (MoE) variants are not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
+from torch import nn
 
 from intel_extension_for_transformers_tpu_torch.ops.codebooks import get_codebook
 
@@ -45,6 +52,9 @@ class QuantizedTensor:
     group_size: int = 128
     K: int = 0
     N: int = 0
+    # "khalf": int8 (K//2, N) nibble half-split; "w32": int32 (Kp//8, N)
+    # decode words, scales and zeros padded to Kp//group_size rows
+    layout: str = "khalf"
 
     @property
     def bits(self) -> int:
@@ -156,10 +166,12 @@ def quantize_groupwise(
     else:
         raise ValueError(f"scheme {scheme!r} must be 'sym' or 'asym'")
 
+    # contiguous buffers: w is often a transposed view (nn.Linear's weight.T),
+    # whose stride order elementwise ops keep, and the kernels read row-major
     return QuantizedTensor(
-        data=data,
-        scales=scales.to(scale_dtype),
-        zeros=zeros,
+        data=data.contiguous(),
+        scales=scales.to(scale_dtype).contiguous(),
+        zeros=None if zeros is None else zeros.contiguous(),
         weight_dtype=weight_dtype,
         scheme="sym" if weight_dtype in ("nf4", "fp4", "fp4_e2m1") else scheme,
         group_size=group_size,
@@ -170,6 +182,8 @@ def quantize_groupwise(
 
 def dequantize(qt: QuantizedTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Reconstruct the (K, N) float weight, computed in f32, cast to `dtype`."""
+    if qt.layout == "w32":
+        qt = from_decode_layout(qt)
     g = qt.group_size
     if qt.is_codebook:
         cb = torch.as_tensor(get_codebook(qt.weight_dtype), device=qt.data.device)
@@ -190,3 +204,114 @@ def dequantize(qt: QuantizedTensor, dtype: torch.dtype = torch.float32) -> torch
     if qt.pre_scale is not None:
         w = w * qt.pre_scale.to(torch.float32)[:, None]
     return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# w32 decode layout
+# ---------------------------------------------------------------------------
+
+
+def decode_layout_pad(K: int, group_size: int) -> int:
+    """Padded K of the w32 layout: a multiple of lcm(512, 8 * group_size).
+
+    512 rows are one 64-word block of the layout; the JAX package's kernel
+    also wants a multiple of 8 scale groups per K step. Padded rows hold zero
+    nibbles and meet zero-padded activations, so they add nothing."""
+    unit = max(512, 8 * group_size)
+    return (K + unit - 1) // unit * unit
+
+
+def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) → int32 with the same 32 bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def _khalf_to_w32(data: torch.Tensor, K: int, group_size: int, scheme: str) -> torch.Tensor:
+    """int8 (K//2, N) khalf → int32 (Kp//8, N) words.
+
+    Word kw of each 512-row block holds slot s at bits [4s, 4s + 4): slot
+    s < 4 is row 128 s + 2 kw and slot s >= 4 is row 128 (s - 4) + 2 kw + 1.
+    A sym nibble is biased to [0, 15] by flipping its top bit (v ^ 8 = v + 8).
+    """
+    N = data.shape[1]
+    p = data.to(torch.int64)
+    nib = torch.cat([p & 0xF, (p >> 4) & 0xF], dim=0)  # (K, N) raw nibble bits
+    if scheme == "sym":
+        nib = nib ^ 8
+    Kp = decode_layout_pad(K, group_size)
+    if Kp != K:
+        nib = torch.cat([nib, nib.new_zeros(Kp - K, N)], dim=0)
+    nib = nib.reshape(Kp // 512, 4, 64, 2, N)  # [block, j, kw, half, n]
+    words = torch.zeros((Kp // 512, 64, N), dtype=torch.int64, device=data.device)
+    for j in range(4):
+        for half in range(2):
+            words |= nib[:, j, :, half, :] << (4 * (j + 4 * half))
+    return _to_int32_bits(words.reshape(Kp // 8, N))
+
+
+def w32_nibbles(words: torch.Tensor) -> torch.Tensor:
+    """int32 (Kp//8, N) words → (Kp, N) int32 biased nibbles in natural row order."""
+    N = words.shape[1]
+    Kp = words.shape[0] * 8
+    w = words.to(torch.int32).reshape(Kp // 512, 1, 64, 1, N)
+    shifts = 4 * (torch.arange(4, device=words.device)[:, None]
+                  + 4 * torch.arange(2, device=words.device)[None, :])  # [j, half]
+    nib = (w >> shifts.to(torch.int32)[None, :, None, :, None]) & 0xF
+    return nib.reshape(Kp, N)
+
+
+def _w32_to_khalf(words: torch.Tensor, K: int, scheme: str) -> torch.Tensor:
+    nib = w32_nibbles(words)[:K]
+    if scheme == "sym":
+        nib = nib ^ 8
+    return _wrap_int8((nib[K // 2 :] << 4) | nib[: K // 2])
+
+
+def to_decode_layout(qt: QuantizedTensor) -> QuantizedTensor:
+    """Repack an int4 khalf tensor into the w32 decode layout.
+
+    Scales and zeros get zero rows up to Kp//group_size. int8, codebook and
+    already-w32 tensors come back unchanged (they keep the khalf kernels)."""
+    if qt.layout != "khalf" or qt.bits != 4 or qt.is_codebook or qt.data.ndim != 2:
+        return qt
+    Kp = decode_layout_pad(qt.K, qt.group_size)
+    gpad = Kp // qt.group_size - qt.scales.shape[0]
+
+    def pad_rows(t):
+        if t is None or not gpad:
+            return t
+        return torch.cat([t, t.new_zeros(gpad, t.shape[1])], dim=0)
+
+    return replace(
+        qt,
+        data=_khalf_to_w32(qt.data, qt.K, qt.group_size, qt.scheme),
+        scales=pad_rows(qt.scales),
+        zeros=pad_rows(qt.zeros),
+        layout="w32",
+    )
+
+
+def from_decode_layout(qt: QuantizedTensor) -> QuantizedTensor:
+    """Inverse of `to_decode_layout` (drops the K and scale-row padding)."""
+    if qt.layout != "w32":
+        return qt
+    G = qt.K // qt.group_size
+    return replace(
+        qt,
+        data=_w32_to_khalf(qt.data, qt.K, qt.scheme),
+        scales=qt.scales[:G],
+        zeros=None if qt.zeros is None else qt.zeros[:G],
+        layout="khalf",
+    )
+
+
+@torch.no_grad()
+def prepare_for_inference(model: nn.Module) -> nn.Module:
+    """Repack every eligible `WOQLinear` of `model` into the w32 layout, in
+    place. Call once on a loaded model before serving; returns `model`."""
+    from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import WOQLinear
+
+    for module in model.modules():
+        if isinstance(module, WOQLinear):
+            module.set_qt(to_decode_layout(module.qt))
+    return model

@@ -74,9 +74,11 @@ def quantize_model(
     is_quantizable = is_quantizable or default_is_quantizable
     skip = tuple(config.modules_to_not_convert or [])
     quantized_paths = []
-    for name, linear in list(model.named_modules()):
-        if not isinstance(linear, nn.Linear):
-            continue
+    # names, not modules: a replaced layer's float weight is freed as its
+    # packed copy lands, so the peak stays near the float model's size
+    names = [name for name, m in model.named_modules() if isinstance(m, nn.Linear)]
+    for name in names:
+        linear = model.get_submodule(name)
         p = name.replace(".", "/") + "/kernel"
         if any(s in p for s in skip) or not is_quantizable(p, linear.weight):
             continue

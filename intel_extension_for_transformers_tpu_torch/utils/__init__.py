@@ -1,3 +1,9 @@
 from intel_extension_for_transformers_tpu_torch.utils.device import require_cuda
+from intel_extension_for_transformers_tpu_torch.utils.error_utils import (
+    clear_latest_error,
+    get_latest_error,
+    set_latest_error,
+)
+from intel_extension_for_transformers_tpu_torch.utils.errorcode import ErrorCodes
 
-__all__ = ["require_cuda"]
+__all__ = ["require_cuda", "ErrorCodes", "set_latest_error", "get_latest_error", "clear_latest_error"]

@@ -82,3 +82,67 @@ def test_scan_top2_kernel_matches_plain(dev, B, N, D, size, n_tile):
     sk = np.einsum("rd,rd->r", qf[rows], df[ki[rows, cols]])
     sp = np.einsum("rd,rd->r", qf[rows], df[pi[rows, cols]])
     assert np.all(np.abs(sk - sp) <= 1e-4)
+
+
+# K3 against its plain version: both take exact products of x with 128 + v'
+# and f32 sums; the m1 branch then subtracts 136 * s * sum(x_g), ~40x the
+# result, so f32 rounding in another order reaches a few 1e-5 relative: 1e-4
+# bounds it. A bf16 output adds one bf16 rounding: 2e-3.
+@pytest.mark.parametrize("x_dtype,out_dtype,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 2e-3),
+])
+@pytest.mark.parametrize("scheme,M,K,N,g", [
+    ("sym", 1, 4096, 4096, 128),  # GEMV, m1
+    ("sym", 5, 1280, 300, 64),  # GEMV (M <= 8), K padded to 1536, ragged N
+    ("asym", 16, 11008, 512, 128),  # tiled, m1, Kp = 11264
+    ("sym", 200, 1024, 1000, 32),  # tiled, fold branch
+    ("asym", 48, 1152, 300, 32),  # tiled, fold branch, K padded
+])
+def test_woq_w32_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dtype, tol):
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=dev, generator=gen).to(x_dtype)
+    w = torch.randn(K, N, device=dev, generator=gen) * 0.02
+    qt = packing.to_decode_layout(packing.quantize_groupwise(w, "int4", scheme, g))
+    got = quant_matmul.woq_w32_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_w32_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+
+
+# K4 against the plain f32 attention: unit-normal inputs, f32 scores and
+# softmax on both sides in another order, so f32 outputs agree to 1e-5
+# absolute; bf16 outputs to one bf16 rounding (2e-3 relative).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Hkv,D,causal,q_offset", [
+    (1, 300, 300, 4, 4, 128, True, 0),
+    (2, 200, 200, 8, 2, 64, True, 0),  # GQA
+    (1, 64, 500, 4, 4, 80, True, 436),  # chunked prefill offset
+    (1, 70, 90, 2, 2, 40, False, 0),  # non-causal, S != T
+    (1, 130, 130, 2, 1, 256, True, 0),  # the largest head dim
+])
+def test_flash_attention_kernel_matches_plain(dev, B, T, S, H, Hkv, D, causal, q_offset, dtype):
+    from intel_extension_for_transformers_tpu_torch.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(T + S + D)
+    q = torch.randn(B, T, H, D, device=dev, generator=gen).to(dtype)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(dtype)
+    v = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(dtype)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        assert _rel(got, want) <= 2e-3
+
+
+def test_flash_attention_kernel_rejects_unsupported_head_dim(dev):
+    from intel_extension_for_transformers_tpu_torch.ops import flash_attention
+
+    q = torch.randn(1, 8, 2, 12, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention_cuda(q, q, q)

@@ -14,9 +14,23 @@ torch.set_num_threads(1)
 SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch",
     "intel_extension_for_transformers_tpu_torch.bridge",
+    "intel_extension_for_transformers_tpu_torch.evaluation",
+    "intel_extension_for_transformers_tpu_torch.evaluation.harness",
     "intel_extension_for_transformers_tpu_torch.models.bert",
+    "intel_extension_for_transformers_tpu_torch.models.generation",
+    "intel_extension_for_transformers_tpu_torch.models.llama",
+    "intel_extension_for_transformers_tpu_torch.models.registry",
+    "intel_extension_for_transformers_tpu_torch.models.tokenization",
+    "intel_extension_for_transformers_tpu_torch.neural_chat",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.adapters",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.base_model",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.chatbot",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.config",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.plugins",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.prompts",
     "intel_extension_for_transformers_tpu_torch.ops",
     "intel_extension_for_transformers_tpu_torch.ops.codebooks",
+    "intel_extension_for_transformers_tpu_torch.ops.flash_attention",
     "intel_extension_for_transformers_tpu_torch.ops.kernels",
     "intel_extension_for_transformers_tpu_torch.ops.layers",
     "intel_extension_for_transformers_tpu_torch.ops.packing",
@@ -32,6 +46,9 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.retrieval.splitter",
     "intel_extension_for_transformers_tpu_torch.retrieval.synthetic",
     "intel_extension_for_transformers_tpu_torch.utils.device",
+    "intel_extension_for_transformers_tpu_torch.utils.error_utils",
+    "intel_extension_for_transformers_tpu_torch.utils.errorcode",
+    "intel_extension_for_transformers_tpu_torch.utils.profile_llama",
 ]
 
 
@@ -57,3 +74,11 @@ def test_require_cuda_raises_without_a_card():
         pytest.skip("this host has a CUDA card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         require_cuda()
+
+
+def test_profile_llama_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from intel_extension_for_transformers_tpu_torch.utils import profile_llama
+
+    assert profile_llama.main() == 1

@@ -55,3 +55,19 @@ def test_pack_unpack_int4_matches_jax(signed):
     packed = tpk.pack_int4(torch.from_numpy(q))
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jpk.pack_int4(jnp.asarray(q))))
     np.testing.assert_array_equal(tpk.unpack_int4(packed, signed).numpy(), q)
+
+
+def test_quantize_transposed_weight_gives_contiguous_buffers():
+    """A transposed view (nn.Linear's weight.T) packs to the same bytes, in
+    row-major buffers, so the kernels' wrappers copy nothing per call."""
+    w = torch.randn(64, 256)
+    for scheme in ("sym", "asym"):
+        view = tpk.quantize_groupwise(w.T, "int4", scheme, 32)
+        dense = tpk.quantize_groupwise(w.T.contiguous(), "int4", scheme, 32)
+        for name in ("data", "scales", "zeros"):
+            got, want = getattr(view, name), getattr(dense, name)
+            if want is None:
+                assert got is None
+                continue
+            assert got.is_contiguous()
+            assert torch.equal(got, want)

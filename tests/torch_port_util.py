@@ -19,12 +19,30 @@ def tree_to_numpy(tree):
             "group_size": tree.group_size,
             "K": tree.K,
             "N": tree.N,
+            "layout": tree.layout,
         }
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_to_numpy(v) for v in tree]
     return np.asarray(tree)
+
+
+def llama_models(jcfg, tcfg, seed=0, group_size=32):
+    """A JAX tiny Llama, float, khalf int4 (RTN) and w32, each with the port's
+    model carried over by the bridge → {name: (JAX params, port model)}."""
+    import jax
+
+    from intel_extension_for_transformers_tpu.models.llama import llama_init_params
+    from intel_extension_for_transformers_tpu.ops.packing import prepare_for_inference
+    from intel_extension_for_transformers_tpu.quantization import RtnConfig, quantize_model
+    from intel_extension_for_transformers_tpu_torch.bridge import llama_from_numpy
+
+    params = llama_init_params(jax.random.PRNGKey(seed), jcfg)
+    khalf = quantize_model(params, RtnConfig(weight_dtype="int4", group_size=group_size)).params
+    w32 = prepare_for_inference(khalf)
+    return {name: (p, llama_from_numpy(tree_to_numpy(p), tcfg))
+            for name, p in (("float", params), ("khalf", khalf), ("w32", w32))}
 
 
 def index_state(jidx):
