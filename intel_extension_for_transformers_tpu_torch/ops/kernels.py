@@ -41,6 +41,11 @@ _SIGNATURES = {
     "itx_woq_w32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, B, T, S, H, Hkv, D, scale, causal, q_offset, bf16, stream
     "itx_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # q, packed, scales, row_ids, lists, base, out_s, out_i, B, nprobe, D, L,
+    # G, group_size, bits, k, code_mult, code_offset, track_positions, stream
+    "itx_ivf_scan_lists": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # in_s, in_i, out_s, out_i, B, R, k, stream
+    "itx_ivf_merge_topk": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -3,7 +3,7 @@ from intel_extension_for_transformers_tpu_torch.retrieval.embedder import (
     SimpleTokenizer,
     TextEmbedder,
 )
-from intel_extension_for_transformers_tpu_torch.retrieval.index import FlatIndex
+from intel_extension_for_transformers_tpu_torch.retrieval.index import FlatIndex, IVFIndex
 from intel_extension_for_transformers_tpu_torch.retrieval.parser import DocumentParser
 from intel_extension_for_transformers_tpu_torch.retrieval.reranker import (
     CrossEncoder,
@@ -14,6 +14,7 @@ from intel_extension_for_transformers_tpu_torch.retrieval.splitter import (
 )
 from intel_extension_for_transformers_tpu_torch.retrieval.synthetic import (
     clustered_embeddings,
+    clustered_embeddings_device,
     exact_topk,
     gaussian_embeddings,
     recall_at_k,
@@ -24,11 +25,13 @@ __all__ = [
     "SimpleTokenizer",
     "TextEmbedder",
     "FlatIndex",
+    "IVFIndex",
     "DocumentParser",
     "CrossEncoder",
     "CrossEncoderReranker",
     "RecursiveCharacterTextSplitter",
     "clustered_embeddings",
+    "clustered_embeddings_device",
     "exact_topk",
     "gaussian_embeddings",
     "recall_at_k",

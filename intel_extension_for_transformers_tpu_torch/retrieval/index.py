@@ -44,8 +44,9 @@ from intel_extension_for_transformers_tpu_torch.ops.packing import (
 )
 from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import woq_matmul
 from intel_extension_for_transformers_tpu_torch.ops.scan_topk import scan_topk_candidates
+from intel_extension_for_transformers_tpu_torch.utils.device import resolve_device
 
-__all__ = ["FlatIndex", "random_rotation"]
+__all__ = ["FlatIndex", "IVFIndex", "random_rotation"]
 
 FUSED_MIN_BATCH = 64
 FUSED_MIN_SIZE = 4096
@@ -126,10 +127,12 @@ class FlatIndex:
         center: bool = True,  # int4: subtract the first batch's mean pre-encode
         rescore_dtype: Optional[str] = None,  # int4: "bfloat16" | "float32"
         rotation_seed: int = 0,
-        device="cpu",
+        device=None,  # None: the card (`resolve_device`); "cpu" runs the plain versions
     ):
         if dtype == "int8":
-            raise NotImplementedError("int8 index storage is not ported yet")
+            raise NotImplementedError(
+                "int8 flat-index storage is not ported yet (ROADMAP.md queue 1, step 2)"
+            )
         if dtype not in ("float32", "bfloat16", "int4"):
             raise ValueError(f"unsupported index dtype {dtype}")
         if metric not in ("ip", "cosine"):
@@ -146,7 +149,7 @@ class FlatIndex:
         self.center = center
         self.rescore_dtype = rescore_dtype
         self.rotation_seed = rotation_seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         cap, dev = self._capacity, self.device
         if dtype == "int4":
@@ -342,7 +345,7 @@ class FlatIndex:
         return meta, arrays
 
     @classmethod
-    def from_state(cls, meta: dict, arrays: dict, device="cpu") -> "FlatIndex":
+    def from_state(cls, meta: dict, arrays: dict, device=None) -> "FlatIndex":
         """Build an index from `state()`'s output (or the JAX package's save
         format). A rotated int4 index needs `arrays["rotation"]`."""
         n = meta["size"]
@@ -391,7 +394,7 @@ class FlatIndex:
             json.dump(meta, f)
 
     @classmethod
-    def load(cls, path: str, *, rotation=None, device="cpu") -> "FlatIndex":
+    def load(cls, path: str, *, rotation=None, device=None) -> "FlatIndex":
         """Load a saved index. `rotation` supplies the matrix for a rotated
         int4 index saved without one (e.g. by the JAX package)."""
         with open(os.path.join(path, "index.json")) as f:
@@ -401,3 +404,7 @@ class FlatIndex:
         if rotation is not None:
             arrays["rotation"] = rotation
         return cls.from_state(meta, arrays, device)
+
+
+# IVF lives in its own module; re-exported here as in the JAX package.
+from intel_extension_for_transformers_tpu_torch.retrieval.ivf import IVFIndex  # noqa: E402

@@ -1,4 +1,4 @@
-from intel_extension_for_transformers_tpu_torch.utils.device import require_cuda
+from intel_extension_for_transformers_tpu_torch.utils.device import require_cuda, resolve_device
 from intel_extension_for_transformers_tpu_torch.utils.error_utils import (
     clear_latest_error,
     get_latest_error,
@@ -6,4 +6,4 @@ from intel_extension_for_transformers_tpu_torch.utils.error_utils import (
 )
 from intel_extension_for_transformers_tpu_torch.utils.errorcode import ErrorCodes
 
-__all__ = ["require_cuda", "ErrorCodes", "set_latest_error", "get_latest_error", "clear_latest_error"]
+__all__ = ["require_cuda", "resolve_device", "ErrorCodes", "set_latest_error", "get_latest_error", "clear_latest_error"]

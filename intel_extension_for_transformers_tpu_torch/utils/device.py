@@ -24,3 +24,11 @@ def require_cuda() -> torch.device:
             f"are built for sm_{REQUIRED_CAPABILITY[0]}{REQUIRED_CAPABILITY[1]}a"
         )
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names one.
+
+    `None` means `require_cuda()`, which raises on a host without a Hopper
+    card; pass `device="cpu"` to run the plain PyTorch versions there."""
+    return require_cuda() if device is None else torch.device(device)

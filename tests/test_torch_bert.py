@@ -48,7 +48,7 @@ def _encode_both(jp, model, inputs, pooling):
 @pytest.mark.parametrize("pooling", ["cls", "mean"])
 def test_bert_encode_f32_matches(jparams, inputs, pooling):
     """Tolerance: 1e-5 absolute on unit-norm f32 embeddings."""
-    model = bridge.params_from_numpy(tree_to_numpy(jparams), TCONFIG)
+    model = bridge.params_from_numpy(tree_to_numpy(jparams), TCONFIG, device="cpu")
     got, want = _encode_both(jparams, model, inputs, pooling)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
@@ -57,7 +57,7 @@ def test_bert_encode_rtn_int4_matches(jparams, inputs):
     """RTN int4 g64, M = 32 rows: the JAX side runs the Pallas kernel in
     interpret mode, the port K1's plain version. Tolerance: 1e-4 absolute."""
     jq = jquantize(jparams, JRtn(weight_dtype="int4", group_size=64))
-    model = bridge.params_from_numpy(tree_to_numpy(jq.params), TCONFIG)
+    model = bridge.params_from_numpy(tree_to_numpy(jq.params), TCONFIG, device="cpu")
     got, want = _encode_both(jq.params, model, inputs, "cls")
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
@@ -65,7 +65,7 @@ def test_bert_encode_rtn_int4_matches(jparams, inputs):
 def test_quantize_model_matches_jax(jparams):
     """Tolerance: none. The port quantizes the same layers to the same bytes."""
     jq = jquantize(jparams, JRtn(weight_dtype="int4", group_size=64))
-    model = bridge.params_from_numpy(tree_to_numpy(jparams), TCONFIG)
+    model = bridge.params_from_numpy(tree_to_numpy(jparams), TCONFIG, device="cpu")
     tq = quantize_model(model, RtnConfig(weight_dtype="int4", group_size=64))
     assert sorted(tq.quantized_paths) == sorted(jq.quantized_paths)
     jdata = jq.params["layers"][1]["mlp"]["output"]["kernel"]

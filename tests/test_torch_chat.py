@@ -92,7 +92,7 @@ def test_optimization_config_quantizes_like_jax(models):
     g32) on both sides, to the same bytes, and the greedy text agrees, also
     after prepare_for_inference repacks the port's model into w32."""
     params, _ = models["float"]
-    model = bridge.llama_from_numpy(tree_to_numpy(params), TCFG)
+    model = bridge.llama_from_numpy(tree_to_numpy(params), TCFG, device="cpu")
     jbot, tbot = _bots(params, model, jopt=JRtn(weight_dtype="int4", group_size=32),
                        topt=RtnConfig(weight_dtype="int4", group_size=32))
     np.testing.assert_array_equal(
@@ -116,7 +116,7 @@ def test_retrieval_plugin_prompt_and_answer_identical(models, tmp_path, monkeypa
         (tmp_path / f"doc{i}.md").write_text(f"# Doc {i}\n\n" + f"{topic}. " * 6)
     bcfg = jbert.BertConfig.tiny(num_hidden_layers=2)
     enc = jbert.bert_init_params(jax.random.PRNGKey(0), bcfg)
-    tenc = bridge.params_from_numpy(tree_to_numpy(enc), BertConfig.tiny(num_hidden_layers=2))
+    tenc = bridge.params_from_numpy(tree_to_numpy(enc), BertConfig.tiny(num_hidden_layers=2), device="cpu")
     prompts_seen = {}
     from intel_extension_for_transformers_tpu.neural_chat import base_model as jbase
     from intel_extension_for_transformers_tpu_torch.neural_chat import base_model as tbase

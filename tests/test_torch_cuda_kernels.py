@@ -146,3 +146,121 @@ def test_flash_attention_kernel_rejects_unsupported_head_dim(dev):
     q = torch.randn(1, 8, 2, 12, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention.flash_attention_cuda(q, q, q)
+
+
+def _ivf_storage(dev, C, D, L_pad, fill_rows, bits, seed):
+    """Packed IVF lists on the card: `fill_rows` coded residual rows per list
+    (-1 ids after them), from the port's own codec."""
+    from intel_extension_for_transformers_tpu_torch.retrieval.ivf import _encode_residual
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cent = torch.nn.functional.normalize(torch.randn(C, D, generator=gen, device=dev), dim=1)
+    v = cent.repeat_interleave(L_pad, 0) + 0.3 * torch.randn(C * L_pad, D, generator=gen, device=dev) / D**0.5
+    codes, scales = _encode_residual(v, cent.repeat_interleave(L_pad, 0), 32, bits)
+    rid = torch.arange(C * L_pad, device=dev, dtype=torch.int32).reshape(C, L_pad)
+    rid[:, fill_rows:] = -1
+    return cent, codes.reshape(C, L_pad, -1), scales.reshape(C, L_pad, -1), rid
+
+
+def _ivf_queries(dev, cent, B, nprobe, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.nn.functional.normalize(
+        cent[torch.randint(0, cent.shape[0], (B,), generator=gen, device=dev)]
+        + 0.5 * torch.randn(B, cent.shape[1], generator=gen, device=dev) / cent.shape[1] ** 0.5, dim=1)
+    probes = torch.topk(q @ cent.T, nprobe, dim=1).indices.to(torch.int32)
+    probes[:, -1] = probes[:, 0]  # a repeated probe counts once (K6) / repeats its candidates (K7)
+    return q, probes
+
+
+def _assert_ivf_match(got, want, tol):
+    """Scores within tol; ids equal as sets, but for those within tol of the
+    plain version's k-th score (a near-tie either side may keep)."""
+    (ks, ki), (ps, pi) = [(s.cpu().numpy(), i.cpu().numpy()) for s, i in (got, want)]
+    assert np.array_equal(np.isfinite(ks), np.isfinite(ps)) and np.array_equal(ki < 0, pi < 0)
+    fin = np.isfinite(ps)
+    assert np.abs(ks[fin] - ps[fin]).max(initial=0.0) <= tol
+    for rk, sk, rp, sp in zip(ki, ks, pi, ps):
+        kth = sp[np.isfinite(sp)].min(initial=np.inf)
+        for own, vals, other in ((rk, sk, rp), (rp, sp, rk)):
+            for i, v in zip(own.tolist(), vals.tolist()):
+                assert i in other.tolist() or v <= kth + tol
+
+
+# K6 and K7 against their plain versions: both sum exact products of
+# bf16(q) and the bf16 residual in f32, in another order, so scores differ
+# by at most D·2^-24·Σ|q_i r_i| <= 768 · 6e-8 · 1 ≈ 5e-5 for unit queries
+# and residuals of norm <= 1: tolerance 5e-5.
+IVF_TOL = 5e-5
+
+
+@pytest.mark.parametrize("bits,track,mult,offset,k", [
+    (8, False, 1, 0, 10),
+    (4, False, 1, 0, 10),
+    (4, True, 16, 8, 64),  # the refine tier's global top-r
+    (8, True, 1, 0, 200),
+])
+@pytest.mark.parametrize("C,D,L_pad,fill_rows,B,nprobe", [
+    (16, 128, 256, 200, 5, 4),
+    (64, 768, 1536, 1220, 64, 8),  # the 10M configuration's list shape
+])
+def test_ivf_scan_topk_kernel_matches_plain(dev, bits, track, mult, offset, k, C, D, L_pad, fill_rows, B, nprobe):
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    cent, packed, scales, rid = _ivf_storage(dev, C, D, L_pad, fill_rows, bits, seed=C + D)
+    q, probes = _ivf_queries(dev, cent, B, nprobe, seed=B)
+    kw = dict(k=k, bits=bits, group_size=32, l_blk=L_pad, track_positions=track,
+              code_mult=mult, code_offset=offset)
+    got = ivf_scan.ivf_scan_topk_cuda(q, cent, packed, scales, rid, probes, **kw)
+    want = ivf_scan.ivf_scan_topk_plain(q, cent, packed, scales, rid, probes, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, k) and got[1].dtype == torch.int32
+    _assert_ivf_match(got, want, IVF_TOL)
+
+
+@pytest.mark.parametrize("bits,mult,offset,t", [(4, 16, 8, 24), (8, 1, 0, 16), (4, 1, 0, 250)])
+@pytest.mark.parametrize("C,D,L_pad,fill_rows,B,nprobe", [
+    (16, 128, 256, 200, 5, 4),
+    (64, 768, 1536, 1220, 64, 8),
+])
+def test_ivf_scan_candidates_kernel_matches_plain(dev, bits, mult, offset, t, C, D, L_pad, fill_rows, B, nprobe):
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    cent, packed, scales, rid = _ivf_storage(dev, C, D, L_pad, fill_rows, bits, seed=C + D + 1)
+    q, probes = _ivf_queries(dev, cent, B, nprobe, seed=B + 1)
+    kw = dict(t=t, bits=bits, group_size=32, l_blk=L_pad, code_mult=mult, code_offset=offset)
+    gs, gp = ivf_scan.ivf_scan_candidates_cuda(q, cent, packed, scales, rid, probes, **kw)
+    ws, wp = ivf_scan.ivf_scan_candidates_plain(q, cent, packed, scales, rid, probes, **kw)
+    torch.cuda.synchronize()
+    assert gs.shape == (B, nprobe * t)
+    _assert_ivf_match((gs.reshape(-1, t), gp.reshape(-1, t)), (ws.reshape(-1, t), wp.reshape(-1, t)), IVF_TOL)
+
+
+def test_ivf_scan_kernel_rejects_a_shifted_scale_plane(dev):
+    """The bar above sees a fault: the scales shifted by one group."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    cent, packed, scales, rid = _ivf_storage(dev, 16, 128, 256, 200, 8, seed=3)
+    q, probes = _ivf_queries(dev, cent, 8, 4, seed=3)
+    kw = dict(k=10, bits=8, group_size=32, l_blk=256)
+    got = ivf_scan.ivf_scan_topk_cuda(q, cent, packed, torch.roll(scales, 1, dims=2), rid, probes, **kw)
+    want = ivf_scan.ivf_scan_topk_plain(q, cent, packed, scales, rid, probes, **kw)
+    with pytest.raises(AssertionError):
+        _assert_ivf_match(got, want, IVF_TOL)
+
+
+def test_ivf_index_kernel_route_matches_materializing_route(dev):
+    from intel_extension_for_transformers_tpu_torch.retrieval import IVFIndex, clustered_embeddings_device
+
+    docs, queries = clustered_embeddings_device(40_000, 128, 32, n_topics=32, device=dev)
+    # the materializing refine route keeps the global top nprobe·rescore_t = 48, as K6 does at r = 48
+    for kw, skw in ((dict(dtype="int8"), {}), (dict(dtype="int4", refine="int8"), {"rescore_r": 48, "rescore_t": 8}),
+                    (dict(dtype="int4", refine="int8", refine_capacity=40_000), {"rescore_t": 16})):
+        idx = IVFIndex(128, 64, list_cap=800, spill=True, device=dev, **kw)
+        idx.train(docs[:8000], iters=4)
+        idx.add(docs)
+        got = idx.search(queries, k=10, nprobe=6, **skw)
+        want = idx.search(queries, k=10, nprobe=6, use_kernel=False, **skw)
+        if "rescore_r" not in skw and "refine" in kw:  # K7's per-list quotas select other candidates
+            assert (got[1] >= 0).all()
+            continue
+        _assert_ivf_match([torch.from_numpy(a) for a in got], [torch.from_numpy(a) for a in want], IVF_TOL)

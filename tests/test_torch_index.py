@@ -39,7 +39,7 @@ def indexes(corpus):
     j = jindex.FlatIndex(D, "int4", rescore_dtype="bfloat16", capacity=N)
     j.add(docs)
     meta, arrays = index_state(j)
-    yield j, bridge.flat_index_state(meta, arrays), mp
+    yield j, bridge.flat_index_state(meta, arrays, device="cpu"), mp
     mp.undo()
 
 
@@ -95,7 +95,7 @@ def test_add_with_jax_rotation_reproduces_codes(corpus, indexes, monkeypatch):
     docs, _ = corpus
     j, _, _ = indexes
     monkeypatch.setattr(tindex, "random_rotation", lambda dim, seed=0: torch.from_numpy(np.array(j._rotation)))
-    t = tindex.FlatIndex(D, "int4", rescore_dtype="bfloat16", capacity=N)
+    t = tindex.FlatIndex(D, "int4", rescore_dtype="bfloat16", capacity=N, device="cpu")
     t.add(docs)
     np.testing.assert_allclose(t._mean.numpy(), np.asarray(j._mean), rtol=0, atol=1e-6)
     assert (t._data.numpy() == np.asarray(j._data)).mean() > 0.999
@@ -108,7 +108,7 @@ def test_save_load_round_trip(corpus, indexes, tmp_path):
     _, queries = corpus
     j, t, _ = indexes
     t.save(str(tmp_path / "port"))
-    back = tindex.FlatIndex.load(str(tmp_path / "port"))
+    back = tindex.FlatIndex.load(str(tmp_path / "port"), device="cpu")
     a = t.search(queries[:4], k=5)
     b = back.search(queries[:4], k=5)
     np.testing.assert_array_equal(a[1], b[1])
@@ -119,8 +119,8 @@ def test_save_load_round_trip(corpus, indexes, tmp_path):
     # ... and the port reads the JAX package's only with the rotation supplied
     j.save(str(tmp_path / "jax"))
     with pytest.raises(ValueError, match="rotation"):
-        tindex.FlatIndex.load(str(tmp_path / "jax"))
-    again = tindex.FlatIndex.load(str(tmp_path / "jax"), rotation=np.asarray(j._rotation))
+        tindex.FlatIndex.load(str(tmp_path / "jax"), device="cpu")
+    again = tindex.FlatIndex.load(str(tmp_path / "jax"), rotation=np.asarray(j._rotation), device="cpu")
     np.testing.assert_array_equal(again.search(queries[:4], k=5)[1], a[1])
 
 
@@ -131,7 +131,7 @@ def test_float_index_exact_search_matches(corpus, dtype):
     docs, queries = corpus
     j = jindex.FlatIndex(D, dtype)
     j.add(docs[:1000])
-    t = tindex.FlatIndex(D, dtype)
+    t = tindex.FlatIndex(D, dtype, device="cpu")
     t.add(docs[:1000])
     js, ji = j.search(queries[:8], k=10)
     ts, ti = t.search(queries[:8], k=10)

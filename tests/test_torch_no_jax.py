@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither jax nor the JAX package,
-and the CUDA probe refuses a host without a Hopper card."""
+the CUDA probe refuses a host without a Hopper card, and the entry points
+that take a device run on the card unless the caller names the CPU."""
 
 import subprocess
 import sys
@@ -31,6 +32,7 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.ops",
     "intel_extension_for_transformers_tpu_torch.ops.codebooks",
     "intel_extension_for_transformers_tpu_torch.ops.flash_attention",
+    "intel_extension_for_transformers_tpu_torch.ops.ivf_scan",
     "intel_extension_for_transformers_tpu_torch.ops.kernels",
     "intel_extension_for_transformers_tpu_torch.ops.layers",
     "intel_extension_for_transformers_tpu_torch.ops.packing",
@@ -38,9 +40,11 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.ops.scan_topk",
     "intel_extension_for_transformers_tpu_torch.quantization",
     "intel_extension_for_transformers_tpu_torch.retrieval",
+    "intel_extension_for_transformers_tpu_torch.retrieval._kmeans",
     "intel_extension_for_transformers_tpu_torch.retrieval.agent",
     "intel_extension_for_transformers_tpu_torch.retrieval.embedder",
     "intel_extension_for_transformers_tpu_torch.retrieval.index",
+    "intel_extension_for_transformers_tpu_torch.retrieval.ivf",
     "intel_extension_for_transformers_tpu_torch.retrieval.parser",
     "intel_extension_for_transformers_tpu_torch.retrieval.reranker",
     "intel_extension_for_transformers_tpu_torch.retrieval.splitter",
@@ -48,6 +52,7 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.utils.device",
     "intel_extension_for_transformers_tpu_torch.utils.error_utils",
     "intel_extension_for_transformers_tpu_torch.utils.errorcode",
+    "intel_extension_for_transformers_tpu_torch.utils.profile_ivf",
     "intel_extension_for_transformers_tpu_torch.utils.profile_llama",
 ]
 
@@ -76,9 +81,61 @@ def test_require_cuda_raises_without_a_card():
         require_cuda()
 
 
-def test_profile_llama_refuses_without_a_card():
+@pytest.mark.parametrize("name", ["profile_llama", "profile_ivf"])
+def test_profile_scripts_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    from intel_extension_for_transformers_tpu_torch.utils import profile_llama
+    import importlib
 
-    assert profile_llama.main() == 1
+    assert importlib.import_module(f"intel_extension_for_transformers_tpu_torch.utils.{name}").main() == 1
+
+
+def _entry_points():
+    """(name, call with no device) for each entry point that takes one."""
+    import numpy as np
+
+    from intel_extension_for_transformers_tpu_torch import bridge
+    from intel_extension_for_transformers_tpu_torch.models.bert import BertConfig
+    from intel_extension_for_transformers_tpu_torch.models.llama import LlamaConfig
+    from intel_extension_for_transformers_tpu_torch.retrieval import (
+        FlatIndex,
+        IVFIndex,
+        clustered_embeddings_device,
+    )
+
+    flat_meta = {"dim": 8, "dtype": "float32", "metric": "ip", "size": 1}
+    flat_arrays = {"vectors": np.zeros((1, 8), np.float32)}
+    ivf_meta = {"dim": 8, "n_lists": 1, "metric": "ip", "dtype": "float32", "list_cap": 8, "size": 0}
+    ivf_arrays = {"centroids": np.zeros((1, 8), np.float32), "storage": np.zeros((8, 8), np.float32),
+                  "row_ids": np.full(8, -1, np.int32), "fill": np.zeros(1, np.int32)}
+    return {
+        "FlatIndex": lambda: FlatIndex(64),
+        "FlatIndex.from_state": lambda: FlatIndex.from_state(flat_meta, flat_arrays),
+        "IVFIndex": lambda: IVFIndex(64),
+        "IVFIndex.from_state": lambda: IVFIndex.from_state(ivf_meta, ivf_arrays),
+        "bridge.flat_index_state": lambda: bridge.flat_index_state(flat_meta, flat_arrays),
+        "bridge.ivf_index_state": lambda: bridge.ivf_index_state(ivf_meta, ivf_arrays),
+        "bridge.params_from_numpy": lambda: bridge.params_from_numpy({}, BertConfig.tiny()),
+        "bridge.llama_from_numpy": lambda: bridge.llama_from_numpy({}, LlamaConfig.tiny()),
+        "clustered_embeddings_device": lambda: clustered_embeddings_device(16, 8, 2),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """With no device given, an entry point asks for the card and raises on
+    a host without one; it never builds quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_entry_points_take_the_cpu_when_asked(tmp_path):
+    from intel_extension_for_transformers_tpu_torch.retrieval import FlatIndex, IVFIndex
+
+    flat = FlatIndex(8, "float32", device="cpu")
+    flat.add(torch.eye(8))
+    flat.save(str(tmp_path / "flat"))
+    assert FlatIndex.load(str(tmp_path / "flat"), device="cpu").device.type == "cpu"
+    assert IVFIndex(8, device="cpu").device.type == "cpu"

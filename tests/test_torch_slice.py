@@ -79,10 +79,10 @@ def agents(corpus):
         reranker=JReranker(rer, JCONFIG), top_k=4, rerank_top_n=3,
     )
     tagent = RetrievalAgent(
-        TextEmbedder(bridge.params_from_numpy(tree_to_numpy(enc), TCONFIG), TCONFIG),
+        TextEmbedder(bridge.params_from_numpy(tree_to_numpy(enc), TCONFIG, device="cpu"), TCONFIG),
         index_dtype="int4",
         reranker=CrossEncoderReranker(
-            bridge.params_from_numpy(tree_to_numpy(rer), TCONFIG), TCONFIG
+            bridge.params_from_numpy(tree_to_numpy(rer), TCONFIG, device="cpu"), TCONFIG
         ),
         top_k=4, rerank_top_n=3,
     )

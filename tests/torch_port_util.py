@@ -41,7 +41,7 @@ def llama_models(jcfg, tcfg, seed=0, group_size=32):
     params = llama_init_params(jax.random.PRNGKey(seed), jcfg)
     khalf = quantize_model(params, RtnConfig(weight_dtype="int4", group_size=group_size)).params
     w32 = prepare_for_inference(khalf)
-    return {name: (p, llama_from_numpy(tree_to_numpy(p), tcfg))
+    return {name: (p, llama_from_numpy(tree_to_numpy(p), tcfg, device="cpu"))
             for name, p in (("float", params), ("khalf", khalf), ("w32", w32))}
 
 
@@ -78,3 +78,27 @@ def assert_ids_match(ids_a, scores_a, ids_b, scores_b, tol):
             for i, v in zip(own.tolist(), vals.tolist()):
                 if i not in other.tolist():
                     assert v <= kth + tol, (ra, va, rb, vb)
+
+
+def ivf_state(jidx):
+    """A JAX IVFIndex → (meta, arrays) as its `save()` writes them, for
+    `bridge.ivf_index_state`."""
+    import jax.numpy as jnp
+
+    arrays = {
+        "centroids": np.asarray(jidx.centroids),
+        "storage": np.asarray(jidx._storage.astype(jnp.float32) if jidx._storage.dtype == jnp.bfloat16
+                              else jidx._storage),
+        "row_ids": np.asarray(jidx._row_ids),
+        "fill": np.asarray(jidx._fill),
+    }
+    if jidx._scales is not None:
+        arrays["scales"] = np.asarray(jidx._scales.astype(jnp.float32))
+    if jidx._lo is not None:
+        arrays["lo"] = np.asarray(jidx._lo)
+    meta = {
+        "dim": jidx.dim, "n_lists": jidx.n_lists, "metric": jidx.metric, "dtype": jidx.dtype,
+        "list_cap": jidx._list_cap, "size": jidx.size, "group_size": jidx.group_size,
+        "refine": jidx.refine, "refine_capacity": jidx.refine_capacity,
+    }
+    return meta, arrays
