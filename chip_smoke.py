@@ -3,14 +3,16 @@
 Drives the port (intel_extension_for_transformers_tpu_torch) on random
 weights made from seeds: the retrieval path at BGE-base width, then INT4
 Llama generation behind the chat API and long-window scoring at Llama-2-7B
-width, then the IVF index at 10M x 768; and checks each hand-written kernel
-against its plain PyTorch version on the card:
+width, then the IVF index at 10M x 768, then the INT8 model API (save_low_bit,
+from_pretrained, chat) at Llama-2-7B width; and checks each hand-written
+kernel against its plain PyTorch version on the card:
 
   0. probe the card (sm_90), print its name and power limit, TF32 off;
   1. build the kernels from csrc/ with nvcc (sm_90a), one process per source;
-  2. K1 (int4 WOQ GEMM), K5 (scan + per-tile top-2), K3 (w32 decode GEMM),
-     K4 (flash attention), K6 (IVF top-k scan) and K7 (IVF per-list
-     candidates) against their plain versions at the paths' shapes, with
+  2. K1 (int4 WOQ GEMM), K2 (int8 WOQ GEMM), K5 (scan + per-tile top-2),
+     K3 (w32 decode GEMM), K4 (flash attention), K6 (IVF top-k scan) and K7
+     (IVF per-list candidates) against their plain versions at the paths'
+     shapes, with
      errors, CUDA-event times and each case's bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak rate of
      their type); K4 also beside `scaled_dot_product_attention`; faults
@@ -39,10 +41,20 @@ against its plain PyTorch version on the card:
      index searched by K6, then an int4 + int8-refine index searched by K7
      (rescore_t 24) and by K6 (rescore_r 64), 64 queries a batch, each
      against an exact f32 top-10 oracle; the int8 kernel route is also held
-     against the materializing route.
+     against the materializing route;
+  8. the int8 model API: the Llama-2-7B-width model again (bf16, seed 11),
+     quantized as `load_in_8bit` resolves (RTN int8 g128, lm_head bf16),
+     written by `save_low_bit` into a temporary directory and read back by
+     `AutoModelForCausalLM.from_pretrained` (every tensor and the first
+     step's logits bit for bit); `generate_stream` and build_chatbot with
+     phase 3's agent on 4 queries (K2 alone among the WOQ kernels); each of
+     the first step's 224 int8 products held against exactly dequantized
+     f32 weights, and again with two faults planted, which the bar must
+     reject.
 
 Each kernel wrapper counts its launches. The counts are zeroed just before
-each main-path phase (3-4, 5's generations, 6, 7) and read just after it, and
+each main-path phase (3-4, 5's generations, 6, 7, 8's reload and
+generations) and read just after it, and
 every kernel must have launched on the main path. The line before the last
 is a JSON object of the kernels' numbers; the last line is {"ok": true,
 "device": {...}}. Any failed check raises, and the script exits non-zero
@@ -58,8 +70,10 @@ import gc
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -90,7 +104,8 @@ SCORE_WINDOWS = 4
 # the khalf run's inputs, against the khalf output, relative error <= 1e-2
 # (bf16 rounding of q*s and of the output, ~3e-3). Faults are planted in
 # each route; the product bar must reject the w32 ones, the logit bars the
-# flash one.
+# flash one. Phase 8 holds each int8 product (K2) to the same product bar
+# against the exactly dequantized f32 weights.
 LOGIT_COS_BAR = 0.995
 LOGIT_REL_BAR = 0.12
 PRODUCT_BAR = 1e-2
@@ -366,11 +381,13 @@ def main() -> int:
         ivf_scan_topk_cuda,
     )
     from intel_extension_for_transformers_tpu_torch.ops.packing import (
+        dequantize,
         quantize_groupwise,
         to_decode_layout,
     )
     from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import (
         woq_int4_cuda,
+        woq_int8_cuda,
         woq_matmul_plain,
         woq_w32_cuda,
         woq_w32_plain,
@@ -446,6 +463,62 @@ def main() -> int:
     # the khalf Llama-2-7B decode products (phase 5's first run)
     for K, N, lbl in ((4096, 4096, "llama qkvo"), (4096, 11008, "llama gate/up"), (11008, 4096, "llama down")):
         k1_case(lbl, 1, K, N, 128, "int4", "sym", bf16, bf16, f32)
+    k1_case("llama qkvo", 512, 4096, 4096, 128, "int4", "sym", bf16, bf16, f32)  # beside K2 at M = 512
+
+    # K2 at the int8 Llama-2-7B products (phase 8's model), against its plain
+    # version, which rounds q*s as the kernel does: f32 outputs within 1e-5
+    # relative (summation order only), bf16 outputs within 2e-3 (one bf16
+    # rounding of the output). library_ms is null: no one PyTorch call
+    # computes a group-scaled int8 product.
+    k2_cases = []
+    dequant_rows = []
+
+    def k2_case(label, M, qt, x_dtype, iters=20):
+        gen = torch.Generator(device=dev).manual_seed(M + qt.K + qt.N)
+        x = torch.randn(M, qt.K, generator=gen, device=dev).to(x_dtype)
+        got = woq_int8_cuda(x, qt, x_dtype)
+        want = woq_matmul_plain(x, qt, x_dtype)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        mabs = float((got.float() - want.float()).abs().max())
+        bar = 1e-5 if x_dtype == f32 else 2e-3
+        ms = cuda_ms(torch, lambda: woq_int8_cuda(x, qt, x_dtype), iters)
+        plain_ms = cuda_ms(torch, lambda: woq_matmul_plain(x, qt, x_dtype), iters)
+        case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
+                    dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
+                    ms=ms, plain_ms=plain_ms, library_ms=None,
+                    **bound(nbytes(x, qt.data, qt.scales, qt.zeros, got), 2 * M * qt.K * qt.N, str(x_dtype)[6:]))
+        print("K2 " + json.dumps(case))
+        check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K2 {label} M={M} rel {rel} > {bar}")
+        k2_cases.append(case)
+
+    def dequant_matmul_row(label, qt):
+        """The M >= 1024 branch (dequantize into bf16 once + torch.matmul)
+        beside K2 at M = 1, 512 and 1024: data for the open threshold question."""
+        row = dict(label=label, K=qt.K, N=qt.N)
+        for M in (1, 512, 1024):
+            x = torch.randn(M, qt.K, generator=torch.Generator(device=dev).manual_seed(M), device=dev).to(bf16)
+            row[f"dequant_matmul_ms_M{M}"] = cuda_ms(torch, lambda: torch.matmul(x, dequantize(qt, bf16)), 10)
+            row[f"k2_ms_M{M}"] = cuda_ms(torch, lambda: woq_int8_cuda(x, qt, bf16), 10)
+        print("dequant_matmul " + json.dumps(row))
+        dequant_rows.append(row)
+
+    for K, N, lbl in ((4096, 4096, "qkvo"), (4096, 11008, "gate/up"), (11008, 4096, "down")):
+        w = torch.randn(K, N, generator=torch.Generator(device=dev).manual_seed(K + N + 1), device=dev) * 0.02
+        qt = quantize_groupwise(w, "int8", "sym", 128)
+        del w
+        for M in (1, 16, 512):
+            k2_case(lbl, M, qt, bf16)
+        for M in (1, 64):
+            k2_case(lbl, M, qt, f32)
+        dequant_matmul_row(lbl, qt)
+    w = torch.randn(4096, 4096, generator=torch.Generator(device=dev).manual_seed(6), device=dev) * 0.02
+    k2_case("qkvo asym", 16, quantize_groupwise(w, "int8", "asym", 128), bf16)
+    k2_case("qkvo g32", 64, quantize_groupwise(w, "int8", "sym", 32), bf16)
+    w = torch.randn(4096, 32000, generator=torch.Generator(device=dev).manual_seed(7), device=dev) * 0.02
+    k2_case("lm_head shape (ragged N)", 1, quantize_groupwise(w, "int8", "sym", 128), bf16)
+    del w, qt
+    torch.cuda.empty_cache()
 
     k5_cases = []
 
@@ -567,9 +640,9 @@ def main() -> int:
     ivf_cases = ivf_kernel_cases(torch, dev)
     torch.cuda.empty_cache()
 
-    launches = {"woq_int4": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0,
+    launches = {"woq_int4": 0, "woq_int8": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0,
                 "ivf_scan_topk": 0, "ivf_scan_candidates": 0}
-    counters = {"woq_int4": woq_int4_cuda, "scan_top2": scan_top2_cuda,
+    counters = {"woq_int4": woq_int4_cuda, "woq_int8": woq_int8_cuda, "scan_top2": scan_top2_cuda,
                 "woq_w32": woq_w32_cuda, "flash_attention": flash_attention_cuda,
                 "ivf_scan_topk": ivf_scan_topk_cuda, "ivf_scan_candidates": ivf_scan_candidates_cuda}
 
@@ -769,7 +842,7 @@ def main() -> int:
     def traced_stream(model, config, input_ids, sampling=None, **kw):
         rec = {"ids": [int(i) for i in np.asarray(input_ids).reshape(-1)], "times": [], "tokens": []}
         gen_log.append(rec)
-        k1_0, k3_0 = woq_int4_cuda.launches, woq_w32_cuda.launches
+        k1_0, k2_0, k3_0 = woq_int4_cuda.launches, woq_int8_cuda.launches, woq_w32_cuda.launches
         torch.cuda.synchronize()
         rec["t0"] = time.perf_counter()
         try:
@@ -779,6 +852,7 @@ def main() -> int:
                 yield t
         finally:
             rec["k1"] = woq_int4_cuda.launches - k1_0
+            rec["k2"] = woq_int8_cuda.launches - k2_0
             rec["k3"] = woq_w32_cuda.launches - k3_0
 
     generation.generate_stream = traced_stream
@@ -806,27 +880,31 @@ def main() -> int:
             prompt = tok.decode(rec["ids"])
             print("chat " + json.dumps({k: rec[k] for k in (
                 "layout", "mode", "prompt_tokens", "new_tokens", "retrieval_s", "ttft_ms",
-                "decode_ms_per_token", "tokens_per_s", "k1", "k3", "text_chars")}))
+                "decode_ms_per_token", "tokens_per_s", "k1", "k2", "k3", "text_chars")}))
             check("### Context:" in prompt and prompt.endswith("### Response:"),
                   "the prompt carries the retrieved context")
             recs.append(rec)
         return recs
 
+    def first_step(model, ids):
+        """The first sampling step's logits: a prefill into a fresh cache."""
+        cache = init_kv_cache(lcfg, 1, len(ids) + NEW_TOKENS, device=dev)
+        logits, _ = llama_apply(model, lcfg, torch.tensor([ids], device=dev), cache)
+        return logits[0, -1].float()
+
     def first_logits(ids, depth=None, exact_weights=False):
-        """The first sampling step's logits: a prefill into a fresh cache,
-        through the first `depth` layers only, or through products with
-        the exactly dequantized f32 weights (woq_matmul_ref)."""
+        """`first_step` of the chat model, through its first `depth` layers
+        only, or through products with the exactly dequantized f32 weights
+        (woq_matmul_ref)."""
         layers, real_matmul = bot.params.layers, quant_matmul.woq_matmul
         if depth is not None:
             bot.params.layers = layers[:depth]
         if exact_weights:
             quant_matmul.woq_matmul = lambda x, qt, out_dtype=None: woq_matmul_ref(x, qt, out_dtype)
         try:
-            cache = init_kv_cache(lcfg, 1, len(ids) + NEW_TOKENS, device=dev)
-            logits, _ = llama_apply(bot.params, lcfg, torch.tensor([ids], device=dev), cache)
+            return first_step(bot.params, ids)
         finally:
             bot.params.layers, quant_matmul.woq_matmul = layers, real_matmul
-        return logits[0, -1].float()
 
     zero_counts()
     recs_khalf = run_requests("khalf", plan)
@@ -856,6 +934,7 @@ def main() -> int:
     check(all(r["k3"] > 0 and r["k1"] == 0 for r in recs_w32), "K3, not K1, ran inside generate_stream")
     logits_w32, logits_w32_1 = first_logits(probe), first_logits(probe, depth=1)
     generation.generate_stream = real_stream
+    check(all(r["k2"] == 0 for r in recs_khalf + recs_w32), "K2 ran in no int4 request")
 
     # the prompt (< 1024 tokens) runs K1 on the khalf model, which rounds
     # q*s to bf16, and K3 on the w32 model, which keeps exact products and
@@ -949,10 +1028,134 @@ def main() -> int:
     c7 = add_counts("phase 7")
     print(f"phase 7 in {time.perf_counter() - t0:.1f} s")
     check(c7["ivf_scan_topk"] > 0 and c7["ivf_scan_candidates"] > 0, "K6 and K7 ran in phase 7")
+
+    # ---- phase 8: the int8 model API at Llama-2-7B width and depth (K2) ----
+    from intel_extension_for_transformers_tpu_torch.models.auto import (
+        AutoModelForCausalLM,
+        CausalLM,
+        _resolve_quant_config,
+    )
+
+    print(f"device memory held before phase 8: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    llama = llama_init_params(torch.Generator(device=dev).manual_seed(11), lcfg, dtype=bf16)
+    logits_bf16 = first_step(llama, probe)
+    qcfg = _resolve_quant_config(None, load_in_4bit=False, load_in_8bit=True)
+    quantize_model(llama, qcfg)
+    torch.cuda.synchronize()
+    n_int8 = sum(isinstance(m, WOQLinear) and m.qt.bits == 8 for m in llama.modules())
+    check(n_int8 == 7 * lcfg.num_hidden_layers and isinstance(llama.lm_head, torch.nn.Linear),
+          f"every q/k/v/o/gate/up/down is int8 and lm_head bf16 ({n_int8})")
+    print(f"int8 model: {qcfg.weight_dtype} {qcfg.scheme} g{qcfg.group_size} (load_in_8bit) of {n_int8} linears, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    saved = CausalLM(llama, lcfg, tok, qcfg)
+    with tempfile.TemporaryDirectory() as save_dir:
+        need = sum(t.numel() * t.element_size() for t in llama.state_dict().values())
+        free = shutil.disk_usage(save_dir).free
+        print(f"low-bit directory {save_dir}: {need / 1e9:.2f} GB of tensors, {free / 1e9:.1f} GB free")
+        check(free > 1.1 * need, f"the temp disk holds the low-bit directory ({free / 1e9:.1f} GB free, "
+                                 f"{need / 1e9:.2f} GB needed)")
+        t0 = time.perf_counter()
+        saved.save_low_bit(save_dir)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(save_dir, f)) for f in os.listdir(save_dir))
+        zero_counts()  # main path: reload, then the API's stream and the chat requests
+        t0 = time.perf_counter()
+        loaded = AutoModelForCausalLM.from_pretrained(save_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    print(f"save_low_bit: {written} bytes in {save_s:.1f} s; from_pretrained: {load_s:.1f} s")
+    check(isinstance(loaded, CausalLM) and loaded.quantization_config.to_dict() == qcfg.to_dict(),
+          "from_pretrained gave a CausalLM with the saved quantization config")
+
+    # the model API's own stream (CausalLM.generate_stream), greedy, on phase 5's first prompt
+    before = {k: fn.launches for k, fn in counters.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    times, api_tokens = [], []
+    for tk in loaded.generate_stream(probe, generation.SamplingConfig(max_new_tokens=NEW_TOKENS)):
+        times.append(time.perf_counter())  # after the token's copy to the host
+        api_tokens.append(int(tk[0]))
+    api = {k: fn.launches - before[k] for k, fn in counters.items()}
+    print("generate_stream " + json.dumps(dict(
+        prompt_tokens=len(probe), new_tokens=len(api_tokens), ttft_ms=(times[0] - t) * 1e3,
+        decode_ms_per_token=(times[-1] - times[0]) * 1e3 / (len(api_tokens) - 1), launches=api)))
+    check(api["woq_int8"] > 0 and api["woq_int4"] == 0 and api["woq_w32"] == 0,
+          "generate_stream ran K2, not K1 or K3")
+    generation.generate_stream = traced_stream
+    bot = build_chatbot(PipelineConfig(
+        model_name_or_path="Llama-2-7b-chat (random weights)",
+        loading_config=LoadingModelConfig(preloaded=(loaded.params, lcfg, tok)),
+        generation_config=GenerationConfig(max_new_tokens=NEW_TOKENS),
+        plugins={"retrieval": {"agent": agent}},
+    ))
+    check(bot is not None, "build_chatbot took the reloaded int8 model")
+    recs_int8 = run_requests("int8", plan)
+    generation.generate_stream = real_stream
+    c8 = add_counts("phase 8")
+    check(all(r["k2"] > 0 and r["k1"] == 0 and r["k3"] == 0 for r in recs_int8),
+          "K2, not K1 or K3, ran inside every chat request")
+    # K1 runs in phase 8 only inside retrieval (the agent's int4 encoder,
+    # reranker and index), never in the int8 model's generation
+    print(f"phase 8: K1 launches {c8['woq_int4']}, all in retrieval; K2 launches {c8['woq_int8']}")
+    check(c8["woq_int8"] > 0 and c8["woq_w32"] == 0, "K2, not K3, ran in phase 8")
+    if recs_int8[0]["ids"] == probe:  # the same prompt: greedy tokens until the chat's EOS, if any
+        chat_tokens = recs_int8[0]["tokens"]
+        check(chat_tokens == api_tokens[:len(chat_tokens)], "the chat's first greedy request repeats generate_stream")
+
+    # the reloaded model against the one that was saved: every tensor, and
+    # the first step's logits, bit for bit
+    sd_saved, sd_loaded = saved.params.state_dict(), loaded.params.state_dict()
+    check(sorted(sd_saved) == sorted(sd_loaded), "the reloaded model has the saved model's tensors")
+    same = [k for k in sd_saved if sd_saved[k].dtype == sd_loaded[k].dtype and torch.equal(sd_saved[k], sd_loaded[k])]
+    print(f"reloaded vs saved model: {len(same)} of {len(sd_saved)} tensors bit for bit")
+    check(len(same) == len(sd_saved), "every tensor of the reloaded model equals the saved one")
+    logits_saved = first_step(saved.params, probe)
+    del saved, llama, sd_saved, sd_loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each int8 product of the first step on its real input, against the
+    # exactly dequantized f32 weights (woq_matmul_ref); K2 rounds q*s and the
+    # output to bf16 (~1.6e-3 relative), the bar is phase 5's
+    products = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: products.append((mod, args[0], out)))
+             for m in loaded.params.modules() if isinstance(m, WOQLinear)]
+    try:
+        logits_int8 = first_step(loaded.params, probe)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(torch.equal(logits_int8, logits_saved), "the reloaded model's first-step logits equal the saved model's")
+    check(len(products) == n_int8, f"the first step ran {len(products)} int8 products")
+    refs = {id(mod): woq_matmul_ref(x, mod.qt, torch.float32) for mod, x, _ in products}
+    gaps = [rel_err(out, refs[id(mod)]) for mod, _, out in products]
+    print(f"int8 products of the first step against exactly dequantized f32 weights: max relative error "
+          f"{max(gaps):.2e}, median {sorted(gaps)[len(gaps) // 2]:.2e} (bar {PRODUCT_BAR})")
+    check(max(gaps) <= PRODUCT_BAR, f"every int8 product within {PRODUCT_BAR} of the exact one")
+    mid = loaded.params.layers[lcfg.num_hidden_layers // 2]
+    for what, lin, name, fault in (
+        ("down scale rows one group late", mid.mlp.down, "scales", lambda t: torch.roll(t, 1, 0)),
+        ("q codes negated (sym)", mid.attention.q, "data", lambda t: -t),
+    ):
+        sound = getattr(lin, name)
+        setattr(lin, name, fault(sound))
+        try:
+            gap = max(rel_err(lin(x), refs[id(mod)]) for mod, x, _ in products if mod is lin)
+        finally:
+            setattr(lin, name, sound)
+        what = f"layer {lcfg.num_hidden_layers // 2} {what}"
+        print(f"planted fault, {what}: that product's relative error {gap:.3f} (bar {PRODUCT_BAR})")
+        check(gap > PRODUCT_BAR, f"the product bar rejects the planted fault: {what}")
+    logits_within_bars(torch, "int8 vs bf16 model first-step logits (reported, not barred)", logits_int8, logits_bf16)
+    del products, refs, loaded, bot, mid, lin, sound
+    gc.collect()
+    torch.cuda.empty_cache()
     check(all(n > 0 for n in launches.values()), f"every kernel launched on the main path: {launches}")
 
     k1_index = next(c for c in k1_cases if c["label"] == "index scan")
     k5_full = k5_cases[0]
+    k2_decode = next(c for c in k2_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
     k3_decode = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
     k4_window = next(c for c in k4_cases if c["label"] == "llama-2-7b window" and c["dtype"] == "bfloat16")
     k6_int8 = ivf_cases["K6"][0]
@@ -967,6 +1170,7 @@ def main() -> int:
 
     summary = {"kernels": [
         row("woq_int4", "woq_int4.cu", "quant_matmul.py:87", k1_cases, k1_index),
+        row("woq_int8", "woq_int8.cu", "quant_matmul.py:198", k2_cases, k2_decode),
         row("scan_top2", "scan_top2.cu", "scan_topk.py:39", k5_cases, k5_full),
         row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),
         row("flash_attention", "flash_attention.cu", "flash_attention.py:38", k4_cases, k4_window),

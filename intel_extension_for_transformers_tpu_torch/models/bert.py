@@ -65,6 +65,21 @@ class BertConfig:
                    intermediate_size=4096)
 
 
+def bert_config_from_hf(hf_config) -> BertConfig:
+    """Build from a transformers BertConfig-like object (read by attribute)."""
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_hidden_layers=hf_config.num_hidden_layers,
+        num_attention_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        pad_token_id=hf_config.pad_token_id or 0,
+    )
+
+
 class _LayerNormParams(nn.Module):
     def __init__(self, h: int):
         super().__init__()

@@ -19,8 +19,13 @@ the transpose of the JAX `kernel`); after quantization they are
   ITX_DISABLE_FLASH switch is not read; an all-ones `attention_mask` sends a
   forward to the plain path.
 
-Not ported yet: the Mixtral MoE MLP, ring attention, remat,
-`llama_apply_with_hidden` and the HF config conversion.
+- **HF configs**: `llama_config_from_hf` reads a transformers config object
+  (Llama, Mistral, Qwen2, Phi-3) by attribute, so no transformers import is
+  needed: RoPE scaling (linear, llama3) and the sliding window as the JAX
+  package reads them.
+
+Not ported yet: the Mixtral MoE MLP, ring attention, remat and
+`llama_apply_with_hidden`.
 """
 
 from __future__ import annotations
@@ -119,6 +124,60 @@ class LlamaConfig:
             max_position_embeddings=131072,
             rope_scaling=("llama3", 8.0, 1.0, 4.0, 8192.0),
         )
+
+
+def _rope_scaling_from_hf(hf_config) -> Optional[tuple]:
+    """HF rope_scaling dict → the config's tuple spec (None when absent)."""
+    rs = getattr(hf_config, "rope_scaling", None)
+    if not rs:
+        return None
+    kind = rs.get("rope_type") or rs.get("type")
+    if kind == "linear":
+        return ("linear", float(rs["factor"]))
+    if kind == "llama3":
+        return (
+            "llama3",
+            float(rs["factor"]),
+            float(rs["low_freq_factor"]),
+            float(rs["high_freq_factor"]),
+            float(rs["original_max_position_embeddings"]),
+        )
+    raise ValueError(f"unsupported rope_scaling type {kind!r}")
+
+
+def _sliding_window_from_hf(hf_config) -> Optional[int]:
+    """Mistral: sliding_window (None = global); Qwen2 also gates it behind
+    use_sliding_window (off by default)."""
+    sw = getattr(hf_config, "sliding_window", None)
+    if sw is not None and not getattr(hf_config, "use_sliding_window", True):
+        sw = None
+    return int(sw) if sw else None
+
+
+def llama_config_from_hf(hf_config) -> LlamaConfig:
+    pr = float(getattr(hf_config, "partial_rotary_factor", 1.0) or 1.0)
+    if pr != 1.0:
+        raise ValueError(
+            "the llama-family path rotates the full head_dim; "
+            f"partial_rotary_factor={pr} checkpoints belong to the generic decoder "
+            "(models/decoder.py rotary_pct, not ported yet: ROADMAP queue 1, step 5)"
+        )
+    return LlamaConfig(
+        num_local_experts=getattr(hf_config, "num_local_experts", 0),
+        num_experts_per_tok=getattr(hf_config, "num_experts_per_tok", 2),
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_hidden_layers=hf_config.num_hidden_layers,
+        num_attention_heads=hf_config.num_attention_heads,
+        num_key_value_heads=getattr(hf_config, "num_key_value_heads", hf_config.num_attention_heads),
+        intermediate_size=hf_config.intermediate_size,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        rope_theta=getattr(hf_config, "rope_theta", 10000.0),
+        rope_scaling=_rope_scaling_from_hf(hf_config),
+        sliding_window=_sliding_window_from_hf(hf_config),
+        rms_norm_eps=hf_config.rms_norm_eps,
+        tie_word_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+    )
 
 
 # ---------------------------------------------------------------------------

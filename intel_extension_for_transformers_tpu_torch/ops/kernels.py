@@ -34,6 +34,9 @@ _SIGNATURES = {
     # x, w, scales, zeros, codebook, out, M, N, K, group_size, scheme,
     # x_bf16, out_bf16, stream
     "itx_woq_int4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, scales, zeros, out, part, M, N, K, group_size, asym, gemv,
+    # k_chunk, vec, x_bf16, out_bf16, stream
+    "itx_woq_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, docs, vals, ids, B, N, D, size, n_tile, stream
     "itx_scan_top2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, words, scales, zeros, out, M, N, K, Kp, group_size, asym, m1,

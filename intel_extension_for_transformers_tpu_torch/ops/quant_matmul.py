@@ -1,4 +1,4 @@
-"""Weight-only-quantized matmul, with the hand-written int4 GEMMs K1 and K3.
+"""Weight-only-quantized matmul, with the hand-written GEMMs K1, K2 and K3.
 
 Port of `intel_extension_for_transformers_tpu/ops/quant_matmul.py`:
 
@@ -10,16 +10,16 @@ Port of `intel_extension_for_transformers_tpu/ops/quant_matmul.py`:
    dequantized once into the compute dtype and multiplied with
    `torch.matmul` (the JAX package's dequantize-once branch; M >= 1024 was
    chosen on a TPU and has not been re-measured on the H100). Below that a
-   4-bit weight goes to K1, `csrc/woq_int4.cu`, which never writes the
-   dequantized weight to device memory. K1 and K3 take every shape the
-   packing allows, so there is no fallback for unfriendly shapes.
+   4-bit weight goes to K1, `csrc/woq_int4.cu`, and an int8 weight to K2,
+   `csrc/woq_int8.cu`; neither writes the dequantized weight to device
+   memory. K1, K2 and K3 take every shape the packing allows, so there is
+   no fallback for unfriendly shapes.
 3. `woq_linear` and the `WOQLinear` module: a linear layer over a
    `QuantizedTensor`, held as buffers.
 
 Compute is f32 when x is f32 (full f32, no TF32) and bf16 otherwise; the
-accumulator is always f32. The int8 GEMM (K2) is not ported yet: an int8
-weight runs on the CPU through the plain path and raises on a CUDA tensor.
-No backward is defined; the port serves inference only so far.
+accumulator is always f32. No backward is defined; the port serves
+inference only so far.
 """
 
 from __future__ import annotations
@@ -54,12 +54,12 @@ def woq_matmul_ref(
 def woq_matmul_plain(
     x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """K1's plain PyTorch version, with the kernel's rounding.
+    """The plain PyTorch version of K1 (4-bit weights) and K2 (int8), with
+    the kernels' rounding.
 
     x2 (M, K) in the compute dtype. The scale (and zero point) are cast to
     the compute dtype and q·s or (q−z)·s is taken in that dtype, as the
-    Pallas kernels do; the product accumulates in f32. Also covers int8
-    weights, whose kernel (K2) is not ported.
+    Pallas kernels do; the product accumulates in f32.
     """
     cd = x2.dtype
     g = qt.group_size
@@ -130,6 +130,80 @@ def woq_int4_cuda(
 
 
 woq_int4_cuda.launches = 0
+
+K2_GEMV_MAX_M = 8  # K2 runs its GEMV kernel up to this many rows, tiles above
+K2_TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's SMs
+_K2_TILE_K = 32  # the tiled kernel's K step
+
+
+def int8_k_chunk(M: int, N: int, K: int, group_size: int) -> int:
+    """Rows of K that one K2 block sums (K itself when K is not split).
+
+    K is split until the blocks reach `K2_TARGET_BLOCKS`: on group
+    boundaries for the GEMV (128 columns a block), on 32-row steps for the
+    tiles (64 columns by 16 or 64 rows). Every split holds at least one row.
+    """
+    if M <= K2_GEMV_MAX_M:
+        blocks, unit = -(-N // 128), group_size
+    else:
+        blocks, unit = -(-N // 64) * -(-M // (16 if M <= 16 else 64)), _K2_TILE_K
+    want = -(-K2_TARGET_BLOCKS // blocks)
+    if want <= 1:
+        return K
+    units = -(-K // unit)
+    return min(-(-units // min(want, units)) * unit, K)
+
+
+def woq_int8_cuda(
+    x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
+) -> torch.Tensor:
+    """Launch K2 on x2 (M, K), f32 or bf16, on a CUDA device."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import (
+        check,
+        load_kernels,
+    )
+
+    M, K = x2.shape
+    dev = x2.device
+    g = qt.group_size
+    if dev.type != "cuda":
+        raise ValueError(f"K2 runs on a CUDA device, got {dev}")
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K2 takes f32 or bf16 activations, got {x2.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K2 writes f32 or bf16, got {out_dtype}")
+    if (qt.bits != 8 or qt.layout != "khalf" or qt.data.dtype != torch.int8
+            or qt.data.shape != (K, qt.N) or qt.data.device != dev):
+        raise ValueError("K2 needs an int8 weight of shape (K, N) on x's device")
+    if K % g or qt.scales.shape != (K // g, qt.N):
+        raise ValueError(f"group_size {g} must divide K = {K}")
+    x2 = x2.contiguous()
+    data = qt.data.contiguous()
+    scales = qt.scales.to(torch.float32).contiguous()
+    asym = qt.scheme == "asym"
+    zeros = qt.zeros.to(torch.float32).contiguous() if asym else scales  # unread for sym
+    out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
+    if M == 0 or qt.N == 0:
+        return out
+    gemv = M <= K2_GEMV_MAX_M
+    k_chunk = int8_k_chunk(M, qt.N, K, g)
+    splits = -(-K // k_chunk)
+    part = torch.empty((splits, M, qt.N), dtype=torch.float32, device=dev) if splits > 1 else out
+    vec = (qt.N % 4 == 0 and data.data_ptr() % 4 == 0
+           and scales.data_ptr() % 16 == 0 and zeros.data_ptr() % 16 == 0)
+    status = load_kernels().itx_woq_int8(
+        x2.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        out.data_ptr(), part.data_ptr(),
+        M, qt.N, K, g, int(asym), int(gemv), k_chunk, int(vec),
+        int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(status, "itx_woq_int8")
+    woq_int8_cuda.launches += 1
+    return out
+
+
+woq_int8_cuda.launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -237,9 +311,9 @@ def woq_matmul(
 ) -> torch.Tensor:
     """x (..., K) @ dequant(qt) (K, N) → (..., N).
 
-    On a CUDA tensor a w32 weight launches K3 at every M, and a khalf 4-bit
-    weight at M < 1024 launches K1, or they raise; the plain versions run
-    only for a CPU tensor.
+    On a CUDA tensor a w32 weight launches K3 at every M, a khalf 4-bit
+    weight at M < 1024 launches K1 and an int8 weight K2, or they raise; the
+    plain versions run only for a CPU tensor.
     """
     if qt.pre_scale is not None:
         # AWQ/TEQ/SmoothQuant folding: diag(pre_scale) @ W applied to x instead
@@ -267,9 +341,7 @@ def woq_matmul(
     elif qt.bits == 4:
         out = woq_int4_cuda(x2, qt, out_dtype)
     else:
-        raise NotImplementedError(
-            "the int8 WOQ kernel (K2, quant_matmul.py::_woq_kernel_8bit) is not ported"
-        )
+        out = woq_int8_cuda(x2, qt, out_dtype)
     return out.to(out_dtype).reshape(*batch_shape, qt.N)
 
 

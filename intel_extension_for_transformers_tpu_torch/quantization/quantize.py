@@ -6,8 +6,8 @@ eligible leaves are `QuantizedTensor`s; here every eligible `nn.Linear` of
 the module is replaced, in place, by a `WOQLinear` holding
 `quantize_groupwise(weight.T)`. Eligibility is decided on the same path
 strings the JAX package builds ("layers/0/attention/query/kernel"), so both
-packages quantize the same layers. GPTQ, AWQ, TEQ, AutoRound and W8A8 are not
-ported yet.
+packages quantize the same layers. GPTQ, AWQ, TEQ, AutoRound, W8A8 and mixed
+precision are not ported yet (their configs are, `quantization/config.py`).
 """
 
 from __future__ import annotations
@@ -70,7 +70,9 @@ def quantize_model(
     package returns the new params tree.
     """
     if not isinstance(config, RtnConfig):
-        raise NotImplementedError(f"{type(config).__name__} is not ported; use RtnConfig")
+        raise NotImplementedError(
+            f"{type(config).__name__}'s algorithm is not ported yet (ROADMAP queue 1, step 8); use RtnConfig"
+        )
     is_quantizable = is_quantizable or default_is_quantizable
     skip = tuple(config.modules_to_not_convert or [])
     quantized_paths = []

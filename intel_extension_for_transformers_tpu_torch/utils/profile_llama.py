@@ -1,4 +1,4 @@
-"""Where the time goes in INT4 Llama-2-7B decode and scoring, on one card.
+"""Where the time goes in INT4 and INT8 Llama-2-7B decode and scoring, on one card.
 
 Builds `LlamaConfig.llama2_7b()` from random bf16 weights (seed 11),
 quantizes it to int4 (RTN, sym, g = 128) and runs under `torch.profiler`:
@@ -7,7 +7,9 @@ quantizes it to int4 (RTN, sym, g = 128) and runs under `torch.profiler`:
    the khalf model (K1), then again after `prepare_for_inference` (K3);
 2. one 2048-token scoring window of `evaluate_perplexity` on the w32 model
    (K4 in every layer, K3 in every product);
-3. K1 and K3 alone at M = 1 on the decode products with a cold L2.
+3. the same decode on the model built again and quantized to int8 as
+   `load_in_8bit` resolves it (RTN, sym, g = 128: K2);
+4. K1, K3 and K2 alone at M = 1 on the decode products with a cold L2.
 
 Device time is the sum of the kernel rows of `key_averages()` (the rows
 whose device type is CUDA; an operator's row repeats its kernels' time and
@@ -39,14 +41,19 @@ from intel_extension_for_transformers_tpu_torch.ops.packing import (
     quantize_groupwise,
     to_decode_layout,
 )
-from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import woq_int4_cuda, woq_w32_cuda
+from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import (
+    woq_int4_cuda,
+    woq_int8_cuda,
+    woq_w32_cuda,
+)
 from intel_extension_for_transformers_tpu_torch.quantization import RtnConfig, quantize_model
 
 DECODE_STEPS = 8
 PROMPT_TOKENS = 340
 WINDOW = 2048
 # the kernel names of the port's hand-written kernels, as the profiler shows them
-KERNELS = {"woq_int4_kernel": "K1", "woq_w32": "K3", "flash_kernel": "K4"}
+# (K2's split-K partials are summed by its own splitk_sum kernel)
+KERNELS = {"woq_int4_kernel": "K1", "woq_int8": "K2", "splitk_sum": "K2", "woq_w32": "K3", "flash_kernel": "K4"}
 
 
 def _device_us(evt) -> float:
@@ -58,8 +65,8 @@ def _device_us(evt) -> float:
 
 def _profiled(fn) -> dict:
     """Run fn under the profiler → wall time, device busy time and kernel
-    launches, with device time by kernel (K1/K3/K4 by name, the rest
-    together) and the top kernels."""
+    launches, with device time by kernel (K1-K4 by name, the rest together)
+    and the top kernels."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -118,15 +125,20 @@ def profile_scoring(model, config, ids) -> None:
 
 
 def cold_gemv(dev) -> None:
-    """K1 (khalf) and K3 (w32) at M = 1 on the Llama-2-7B products, cycling
-    through 8 copies of the weight (>= 67 MB of words, more than the 50 MB
-    L2), as a decode step meets them."""
+    """K1 (khalf), K3 (w32) and K2 (int8) at M = 1 on the Llama-2-7B
+    products, cycling through 8 copies of the weight (>= 67 MB, more than
+    the 50 MB L2), as a decode step meets them. GB/s counts the packed
+    weight's bytes: K*N/2 for int4, K*N for int8."""
     x = torch.randn(1, 11008, device=dev).to(torch.bfloat16)
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        qts = [quantize_groupwise(torch.randn(K, N, device=dev) * 0.02, "int4", "sym", 128) for _ in range(8)]
+        w = torch.randn(K, N, device=dev) * 0.02
+        qts = [quantize_groupwise(w.roll(i, 0), "int4", "sym", 128) for i in range(8)]
+        q8s = [quantize_groupwise(w.roll(i, 0), "int8", "sym", 128) for i in range(8)]
+        del w
         row = {"K": K, "N": N, "words_MB": K * N / 2 / 1e6}
         xk = x[:, :K].contiguous()
-        for name, fn, ws in (("k1", woq_int4_cuda, qts), ("k3", woq_w32_cuda, [to_decode_layout(q) for q in qts])):
+        for name, fn, ws in (("k1", woq_int4_cuda, qts), ("k3", woq_w32_cuda, [to_decode_layout(q) for q in qts]),
+                             ("k2", woq_int8_cuda, q8s)):
             for q in ws:
                 fn(xk, q, torch.bfloat16)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -137,7 +149,7 @@ def cold_gemv(dev) -> None:
             end.synchronize()
             ms = start.elapsed_time(end) / 80
             row[name + "_cold_ms"] = ms
-            row[name + "_GBps"] = K * N / 2 / (ms * 1e-3) / 1e9
+            row[name + "_GBps"] = K * N / (1 if name == "k2" else 2) / (ms * 1e-3) / 1e9
         print("cold gemv " + json.dumps(row))
 
 
@@ -159,6 +171,11 @@ def main() -> int:
     prepare_for_inference(model)
     profile_decode(model, cfg, prompt, "w32")
     profile_scoring(model, cfg, byte_ids)
+    del model
+    torch.cuda.empty_cache()
+    model = llama_init_params(torch.Generator(device=dev).manual_seed(11), cfg, dtype=torch.bfloat16)
+    quantize_model(model, RtnConfig(weight_dtype="int8", group_size=128))
+    profile_decode(model, cfg, prompt, "int8")
     del model
     torch.cuda.empty_cache()
     cold_gemv(dev)

@@ -57,6 +57,51 @@ def test_woq_int4_kernel_matches_plain(dev, weight_dtype, scheme, M, K, N, g, x_
     assert _rel(got, want) <= tol
 
 
+# K2 against its plain twin, which rounds the same way (bf16(s), exact q - z,
+# q·s rounded once to bf16): the two differ only in summation order (split-K
+# partials, warps), so f32 outputs hold 1e-5 relative; a bf16 output adds
+# one bf16 rounding: 2e-3.
+@pytest.mark.parametrize("x_dtype,out_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-3),
+])
+@pytest.mark.parametrize("scheme,M,K,N,g", [
+    ("sym", 1, 4096, 4096, 128),  # GEMV, split K
+    ("asym", 8, 1024, 300, 32),  # GEMV, 8 rows, ragged N
+    ("sym", 9, 768, 1000, 32),  # tiles of 16 rows, split K
+    ("asym", 64, 2048, 512, 128),  # tiles of 64 rows
+    ("sym", 513, 1024, 257, 128),  # ragged M and N (byte loads)
+    ("sym", 1, 11008, 4096, 128),  # the Llama-2-7B down product
+])
+def test_woq_int8_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dtype, tol):
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=dev, generator=gen).to(x_dtype)
+    w = torch.randn(K, N, device=dev, generator=gen) * 0.05
+    qt = packing.quantize_groupwise(w, "int8", scheme, g)
+    before = quant_matmul.woq_int8_cuda.launches
+    got = quant_matmul.woq_int8_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_matmul_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul.woq_int8_cuda.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+
+
+def test_woq_int8_kernel_is_deterministic_and_dispatched(dev):
+    """Split-K sums in a fixed order: two runs give the same bits; and
+    `woq_matmul` sends an int8 weight at M < 1024 to K2."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1, 4096, device=dev, generator=gen).to(torch.bfloat16)
+    qt = packing.quantize_groupwise(torch.randn(4096, 4096, device=dev, generator=gen) * 0.02, "int8", "sym", 128)
+    a = quant_matmul.woq_int8_cuda(x, qt, torch.bfloat16)
+    b = quant_matmul.woq_int8_cuda(x, qt, torch.bfloat16)
+    assert torch.equal(a, b)
+    before = quant_matmul.woq_int8_cuda.launches
+    c = quant_matmul.woq_matmul(x, qt)
+    assert quant_matmul.woq_int8_cuda.launches == before + 1 and torch.equal(a, c)
+
+
 @pytest.mark.parametrize("B,N,D,size,n_tile", [
     (64, 4096, 128, 4096, 1024),
     (300, 5000, 384, 3333, 1024),

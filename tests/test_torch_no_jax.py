@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads neither jax nor the JAX package,
-the CUDA probe refuses a host without a Hopper card, and the entry points
-that take a device run on the card unless the caller names the CPU."""
+"""The port stands alone: importing it loads neither jax, nor the JAX package,
+nor HF transformers; the CUDA probe refuses a host without a Hopper card,
+and the entry points that take a device run on the card unless the caller
+names the CPU."""
 
 import subprocess
 import sys
@@ -17,8 +18,11 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.bridge",
     "intel_extension_for_transformers_tpu_torch.evaluation",
     "intel_extension_for_transformers_tpu_torch.evaluation.harness",
+    "intel_extension_for_transformers_tpu_torch.models",
+    "intel_extension_for_transformers_tpu_torch.models.auto",
     "intel_extension_for_transformers_tpu_torch.models.bert",
     "intel_extension_for_transformers_tpu_torch.models.generation",
+    "intel_extension_for_transformers_tpu_torch.models.hf_convert",
     "intel_extension_for_transformers_tpu_torch.models.llama",
     "intel_extension_for_transformers_tpu_torch.models.registry",
     "intel_extension_for_transformers_tpu_torch.models.tokenization",
@@ -39,6 +43,9 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.ops.quant_matmul",
     "intel_extension_for_transformers_tpu_torch.ops.scan_topk",
     "intel_extension_for_transformers_tpu_torch.quantization",
+    "intel_extension_for_transformers_tpu_torch.quantization.config",
+    "intel_extension_for_transformers_tpu_torch.quantization.quantize",
+    "intel_extension_for_transformers_tpu_torch.quantization.save_load",
     "intel_extension_for_transformers_tpu_torch.retrieval",
     "intel_extension_for_transformers_tpu_torch.retrieval._kmeans",
     "intel_extension_for_transformers_tpu_torch.retrieval.agent",
@@ -49,6 +56,7 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.retrieval.reranker",
     "intel_extension_for_transformers_tpu_torch.retrieval.splitter",
     "intel_extension_for_transformers_tpu_torch.retrieval.synthetic",
+    "intel_extension_for_transformers_tpu_torch.transformers",
     "intel_extension_for_transformers_tpu_torch.utils.device",
     "intel_extension_for_transformers_tpu_torch.utils.error_utils",
     "intel_extension_for_transformers_tpu_torch.utils.errorcode",
@@ -62,7 +70,8 @@ def test_import_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'transformers')\n"
+        "             or m.startswith(('jax.', 'transformers.'))\n"
         "             or m.startswith('intel_extension_for_transformers_tpu.')\n"
         "             or m == 'intel_extension_for_transformers_tpu')\n"
         "print(bad)\n"
@@ -90,11 +99,18 @@ def test_profile_scripts_refuse_without_a_card(name):
     assert importlib.import_module(f"intel_extension_for_transformers_tpu_torch.utils.{name}").main() == 1
 
 
-def _entry_points():
-    """(name, call with no device) for each entry point that takes one."""
+def _entry_points(tmp=None):
+    """(name, call with no device) for each entry point that takes one; the
+    model API's loaders read a low-bit directory written under `tmp`."""
+    import json
+    import os
+    import types
+
     import numpy as np
 
     from intel_extension_for_transformers_tpu_torch import bridge
+    from intel_extension_for_transformers_tpu_torch.models import auto, hf_convert
+    from intel_extension_for_transformers_tpu_torch.quantization import save_load
     from intel_extension_for_transformers_tpu_torch.models.bert import BertConfig
     from intel_extension_for_transformers_tpu_torch.models.llama import LlamaConfig
     from intel_extension_for_transformers_tpu_torch.retrieval import (
@@ -108,7 +124,21 @@ def _entry_points():
     ivf_meta = {"dim": 8, "n_lists": 1, "metric": "ip", "dtype": "float32", "list_cap": 8, "size": 0}
     ivf_arrays = {"centroids": np.zeros((1, 8), np.float32), "storage": np.zeros((8, 8), np.float32),
                   "row_ids": np.full(8, -1, np.int32), "fill": np.zeros(1, np.int32)}
+    def low_bit_dir():
+        with open(os.path.join(tmp, auto.MODEL_CONFIG_NAME), "w") as f:
+            json.dump({"model_type": "llama", "config": {}}, f)
+        return str(tmp)
+
+    hf_model = types.SimpleNamespace(config=types.SimpleNamespace(model_type="llama"))
     return {
+        "AutoModelForCausalLM.from_hf_model": lambda: auto.AutoModelForCausalLM.from_hf_model(hf_model),
+        "AutoModelForCausalLM.from_pretrained(dir)": lambda: auto.AutoModelForCausalLM.from_pretrained(low_bit_dir()),
+        "AutoModelForCausalLM.load_low_bit": lambda: auto.AutoModelForCausalLM.load_low_bit(low_bit_dir()),
+        "AutoModel.from_hf_model": lambda: auto.AutoModel.from_hf_model(hf_model),
+        "OptimizedModel.from_pretrained": lambda: auto.OptimizedModel.from_pretrained(low_bit_dir()),
+        "hf_convert.llama_params_from_hf": lambda: hf_convert.llama_params_from_hf(hf_model),
+        "hf_convert.bert_params_from_hf": lambda: hf_convert.bert_params_from_hf(hf_model),
+        "save_load.load_low_bit": lambda: save_load.load_low_bit(low_bit_dir(), LlamaConfig.tiny()),
         "FlatIndex": lambda: FlatIndex(64),
         "FlatIndex.from_state": lambda: FlatIndex.from_state(flat_meta, flat_arrays),
         "IVFIndex": lambda: IVFIndex(64),
@@ -122,13 +152,13 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
-def test_entry_points_default_to_the_card(name):
+def test_entry_points_default_to_the_card(name, tmp_path):
     """With no device given, an entry point asks for the card and raises on
     a host without one; it never builds quietly on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _entry_points()[name]()
+        _entry_points(tmp_path)[name]()
 
 
 def test_entry_points_take_the_cpu_when_asked(tmp_path):

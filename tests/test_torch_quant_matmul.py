@@ -54,8 +54,9 @@ def test_woq_matmul_matches_pallas_kernel(weight_dtype, scheme, M, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("scheme", ["sym", "asym"])
 def test_int8_plain_path_matches_pallas_kernel(scheme, dtype):
-    """int8 weights (K2 is not ported) run the plain path on the CPU, which
-    rounds as the JAX package's _woq_kernel_8bit does."""
+    """int8 weights run K2's plain version on the CPU, which rounds as the
+    JAX package's _woq_kernel_8bit does (more int8 cases:
+    test_torch_woq_int8.py)."""
     x, jq, tq = _operands(7, "int8", scheme, seed=8)
     want = jqm.woq_matmul(jnp.asarray(x).astype(dtype), jq, out_dtype=jnp.float32, interpret=True)
     got = tqm.woq_matmul(torch.from_numpy(x).to(getattr(torch, dtype)), tq, torch.float32)
