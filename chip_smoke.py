@@ -15,7 +15,9 @@ kernel against its plain PyTorch version on the card:
      shapes, with
      errors, CUDA-event times and each case's bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak rate of
-     their type); K4 also beside `scaled_dot_product_attention`; faults
+     their type); K4 also beside `scaled_dot_product_attention`, K1's sym
+     int4 bf16 rows beside `torch._weight_int4pack_mm`, and K1 at M = 1 on
+     the Llama decode products with a cold L2 beside K3 on the same; faults
      planted in K6's inputs (scales one group late, int4 nibbles swapped)
      must fail the K6 bar;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
@@ -165,21 +167,6 @@ def logits_within_bars(torch, what: str, a, b) -> bool:
     return ok
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of `fn` over `iters` launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def ivf_match(torch, got, want, tol: float = IVF_TOL):
     """→ None if (scores, ids) rows `got` match `want`'s under the IVF bar
     above, else what differs."""
@@ -223,6 +210,7 @@ def ivf_kernel_cases(torch, dev, C: int = 256) -> dict:
     coded by the port's own codecs; then faults planted in K6's inputs.
     → {"K6": [case, ...], "K7": [...]}."""
     from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import events_ms
     from intel_extension_for_transformers_tpu_torch.retrieval.ivf import (
         _encode_residual,
         _encode_residual_split,
@@ -273,8 +261,8 @@ def ivf_kernel_cases(torch, dev, C: int = 256) -> dict:
         fin = torch.isfinite(want[0])
         mabs = float((got[0][fin] - want[0][fin]).abs().max())
         cuda, plain, _ = fns[kernel]
-        ms = cuda_ms(torch, lambda: cuda(*args, **kw), 20)
-        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3, warmup=1)
+        ms = events_ms(lambda: cuda(*args, **kw), 20)
+        plain_ms = events_ms(lambda: plain(*args, **kw), 3, warmup=1)
         case = dict(label=label, C=C, L=L, D=D, g=g, B=B, nprobe=nprobe, **kw, max_abs_err=mabs,
                     ms=ms, plain_ms=plain_ms,
                     **ivf_bound(torch, q, args[2], args[3], row_ids, probes, got))
@@ -305,6 +293,7 @@ def ivf_phase(torch, dev, n: int) -> None:
     from intel_extension_for_transformers_tpu_torch.retrieval import ivf as ivf_module
     from intel_extension_for_transformers_tpu_torch.retrieval import recall_at_k
     from intel_extension_for_transformers_tpu_torch.utils import profile_ivf
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import events_ms
 
     t0 = time.perf_counter()
     docs, queries = profile_ivf.corpus(n, dev)
@@ -323,7 +312,7 @@ def ivf_phase(torch, dev, n: int) -> None:
             check(ids.shape == (B, kw["k"]) and bool(np.isfinite(scores).all()) and bool((ids >= 0).all()),
                   f"{kind} {mode}: {B} full rows of finite scores")
             recall = recall_at_k(ids, oracle)
-            ms = cuda_ms(torch, lambda: idx.search(queries, **kw), 20)
+            ms = events_ms(lambda: idx.search(queries, **kw), 20)
             probes = torch.topk(queries @ idx.centroids.T, kw["nprobe"], dim=1).indices
             union = torch.unique(probes).numel()
             union_bytes = union * idx._list_cap * (idx._storage.shape[1] + 2 * idx._scales.shape[1] + 4)
@@ -408,6 +397,7 @@ def main() -> int:
         recall_at_k,
     )
     from intel_extension_for_transformers_tpu_torch.utils.device import require_cuda
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import cold_ms, events_ms
 
     # ---- phase 0: the card ----
     dev = require_cuda()
@@ -430,6 +420,43 @@ def main() -> int:
         return float(torch.linalg.vector_norm((got - want).float()) / torch.linalg.vector_norm(want.float()))
 
     k1_cases = []
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def int4pack(qt):
+        """A sym int4 weight repacked once for `torch._weight_int4pack_mm`:
+        signed nibble u -> u + 8, two K rows a byte with the even row high,
+        bf16 scales and zero points of 0 (w = (u + 8 - 8) * s)."""
+        from intel_extension_for_transformers_tpu_torch.ops.packing import unpack_int4
+
+        u = (unpack_int4(qt.data, signed=True).to(torch.int32) + 8).T.contiguous()  # (N, K) in [0, 15]
+        packed = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+        s = qt.scales.to(bf16)
+        return packed, qt.group_size, torch.stack([s, torch.zeros_like(s)], dim=2).contiguous()  # (K/g, N, 2)
+
+    def int4pack_mm(x, packed, _out_dtype):
+        return torch._weight_int4pack_mm(x, *packed)
+
+    def int4pack_ms(x, qts, want):
+        """K1's library yardstick for sym int4 bf16 products: one
+        `torch._weight_int4pack_mm` call on weights repacked outside the
+        timing, its output within 2e-3 of the plain version on qts[0] first.
+        One weight is timed L2-warm by events, several L2-cold by `cold_ms`'s
+        graph replay, as K1 is. → (ms or None, what was done)."""
+        if not (hasattr(torch, "_weight_int4pack_mm") and hasattr(torch, "_convert_weight_to_int4pack")):
+            return None, f"torch {torch.__version__} has no _weight_int4pack_mm"
+        try:
+            packs = [int4pack(qt) for qt in qts]
+            lib = int4pack_mm(x, packs[0], bf16)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as e:
+            return None, f"torch._weight_int4pack_mm refused the layout: {str(e).splitlines()[0][:160]}"
+        rel = rel_err(lib, want)
+        if not rel <= 2e-3:
+            return None, f"torch._weight_int4pack_mm differs from the plain version by {rel:.3g} (bar 2e-3)"
+        what = f"torch._weight_int4pack_mm after a one-time repack, within {rel:.2e} of the plain version"
+        if len(packs) == 1:
+            return events_ms(lambda: int4pack_mm(x, packs[0], bf16), 20), what
+        return cold_ms(int4pack_mm, x, packs)[0], what + f"; L2-cold over {len(packs)} copies, graph replay"
 
     def k1_case(label, M, K, N, g, weight_dtype, scheme, x_dtype, out_dtype, scale_dtype):
         gen = torch.Generator(device=dev).manual_seed(7 * M + K + N)
@@ -442,17 +469,19 @@ def main() -> int:
         rel = rel_err(got, want)
         mabs = float((got.float() - want.float()).abs().max())
         bar = 1e-5 if x_dtype == torch.float32 and out_dtype == torch.float32 else 2e-3
-        ms = cuda_ms(torch, lambda: woq_int4_cuda(x, qt, out_dtype), 20)
-        plain_ms = cuda_ms(torch, lambda: woq_matmul_plain(x, qt, out_dtype), 20)
+        ms = events_ms(lambda: woq_int4_cuda(x, qt, out_dtype), 20)
+        plain_ms = events_ms(lambda: woq_matmul_plain(x, qt, out_dtype), 20)
+        library_ms, why = None, "no one PyTorch call computes this product in f32 or from these nibbles"
+        if (weight_dtype, scheme, x_dtype, out_dtype) == ("int4", "sym", bf16, bf16) and g in (32, 64, 128, 256):
+            library_ms, why = int4pack_ms(x, [qt], want)
         case = dict(label=label, M=M, K=K, N=N, g=g, weight=f"{weight_dtype}/{scheme}",
                     x=str(x_dtype)[6:], out=str(out_dtype)[6:], rel_err=rel, max_abs_err=mabs,
-                    bar=bar, ms=ms, plain_ms=plain_ms,
+                    bar=bar, ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=why,
                     **bound(nbytes(x, qt.data, qt.scales, qt.zeros, got), 2 * M * K * N, str(x_dtype)[6:]))
         print("K1 " + json.dumps(case))
         check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K1 {label} rel {rel} > {bar}")
         k1_cases.append(case)
 
-    f32, bf16 = torch.float32, torch.bfloat16
     for K, N, lbl in ((768, 768, "qkvo/pooler"), (768, 3072, "ffn_in"), (3072, 768, "ffn_out")):
         for M in (1, 64, 512):
             for dt in (f32, bf16):
@@ -462,7 +491,8 @@ def main() -> int:
     k1_case("index scan", 16, 768, 100_000, 64, "int4", "sym", bf16, bf16, bf16)
     # the khalf Llama-2-7B decode products (phase 5's first run)
     for K, N, lbl in ((4096, 4096, "llama qkvo"), (4096, 11008, "llama gate/up"), (11008, 4096, "llama down")):
-        k1_case(lbl, 1, K, N, 128, "int4", "sym", bf16, bf16, f32)
+        for M in (1, 2, 8, 16):  # the GEMV at M <= 8, the 16-row tiles at 16
+            k1_case(lbl, M, K, N, 128, "int4", "sym", bf16, bf16, f32)
     k1_case("llama qkvo", 512, 4096, 4096, 128, "int4", "sym", bf16, bf16, f32)  # beside K2 at M = 512
 
     # K2 at the int8 Llama-2-7B products (phase 8's model), against its plain
@@ -482,8 +512,8 @@ def main() -> int:
         rel = rel_err(got, want)
         mabs = float((got.float() - want.float()).abs().max())
         bar = 1e-5 if x_dtype == f32 else 2e-3
-        ms = cuda_ms(torch, lambda: woq_int8_cuda(x, qt, x_dtype), iters)
-        plain_ms = cuda_ms(torch, lambda: woq_matmul_plain(x, qt, x_dtype), iters)
+        ms = events_ms(lambda: woq_int8_cuda(x, qt, x_dtype), iters)
+        plain_ms = events_ms(lambda: woq_matmul_plain(x, qt, x_dtype), iters)
         case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
                     dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
                     ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -498,8 +528,8 @@ def main() -> int:
         row = dict(label=label, K=qt.K, N=qt.N)
         for M in (1, 512, 1024):
             x = torch.randn(M, qt.K, generator=torch.Generator(device=dev).manual_seed(M), device=dev).to(bf16)
-            row[f"dequant_matmul_ms_M{M}"] = cuda_ms(torch, lambda: torch.matmul(x, dequantize(qt, bf16)), 10)
-            row[f"k2_ms_M{M}"] = cuda_ms(torch, lambda: woq_int8_cuda(x, qt, bf16), 10)
+            row[f"dequant_matmul_ms_M{M}"] = events_ms(lambda: torch.matmul(x, dequantize(qt, bf16)), 10)
+            row[f"k2_ms_M{M}"] = events_ms(lambda: woq_int8_cuda(x, qt, bf16), 10)
         print("dequant_matmul " + json.dumps(row))
         dequant_rows.append(row)
 
@@ -541,8 +571,8 @@ def main() -> int:
         sp = (qb[rows] * db[pi[rows, cols].long()]).sum(1)
         id_gap = float((sk - sp).abs().max()) if rows.numel() else 0.0
         check(id_gap <= 1e-4, f"K5 ids differ off a tie: {id_gap}")
-        ms = cuda_ms(torch, lambda: scan_top2_cuda(q, d, size), 5, warmup=1)
-        plain_ms = cuda_ms(torch, lambda: scan_top2_plain(q, d, size), 5, warmup=1)
+        ms = events_ms(lambda: scan_top2_cuda(q, d, size), 5, warmup=1)
+        plain_ms = events_ms(lambda: scan_top2_plain(q, d, size), 5, warmup=1)
         # the first `size` docs are scored, in bf16 (the wrapper's cast)
         case = dict(B=B, N=N, D=D, size=size, max_abs_err=mabs, ids_differing=int(rows.numel()),
                     max_score_gap_where_ids_differ=id_gap, ms=ms, plain_ms=plain_ms,
@@ -569,8 +599,8 @@ def main() -> int:
         rel = rel_err(got, want)
         mabs = float((got.float() - want.float()).abs().max())
         bar = 1e-4 if x_dtype == f32 else 2e-3
-        ms = cuda_ms(torch, lambda: woq_w32_cuda(x, qt, x_dtype), iters)
-        plain_ms = cuda_ms(torch, lambda: woq_w32_plain(x, qt, x_dtype), iters)
+        ms = events_ms(lambda: woq_w32_cuda(x, qt, x_dtype), iters)
+        plain_ms = events_ms(lambda: woq_w32_plain(x, qt, x_dtype), iters)
         case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
                     dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
                     ms=ms, plain_ms=plain_ms,
@@ -588,6 +618,37 @@ def main() -> int:
         for M in (1, 16, 2048):
             for dt in (f32, bf16):
                 k3_case(lbl, M, qt, dt, 3 if M == 2048 else 20)
+    # K1 at M = 1 as a khalf decode step meets its products: cycling through
+    # 8 copies of the weight (more than the 50 MB L2), device time by CUDA
+    # graph replay (profile_llama.cold_ms), with K3 on the same products in
+    # the w32 layout and torch._weight_int4pack_mm on the same 8 copies beside it
+    for K, N, lbl in ((4096, 4096, "llama qkvo"), (4096, 11008, "llama gate/up"), (11008, 4096, "llama down")):
+        gen = torch.Generator(device=dev).manual_seed(K + N + 2)
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+        qts = [quantize_groupwise(w.roll(i, 0), "int4", "sym", 128) for i in range(8)]
+        w32s = [to_decode_layout(qt) for qt in qts]
+        del w
+        x = torch.randn(1, K, generator=gen, device=dev).to(bf16)
+        got = woq_int4_cuda(x, qts[0], bf16)
+        want = woq_matmul_plain(x, qts[0], bf16)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        case = dict(label=f"{lbl} L2-cold", M=1, K=K, N=N, g=128, weight="int4/sym", x="bfloat16",
+                    out="bfloat16", rel_err=rel, max_abs_err=float((got.float() - want.float()).abs().max()),
+                    bar=2e-3, plain_ms=None,
+                    **bound(nbytes(x, qts[0].data, qts[0].scales, got), 2 * K * N, "bfloat16"))
+        case["ms"], case["eager_ms"] = cold_ms(woq_int4_cuda, x, qts)
+        case["k3_cold_ms"], case["k3_eager_ms"] = cold_ms(woq_w32_cuda, x, w32s)
+        case["k1_over_k3"] = case["ms"] / case["k3_cold_ms"]
+        case["library_ms"], case["library"] = int4pack_ms(x, qts, want)
+        if case["library_ms"] is not None:
+            case["k1_over_library"] = case["ms"] / case["library_ms"]
+        print("K1 " + json.dumps(case))
+        check(rel <= 2e-3 and bool(torch.isfinite(got.float()).all()), f"K1 {lbl} L2-cold rel {rel} > 2e-3")
+        k1_cases.append(case)
+        del qts, w32s
+    torch.cuda.empty_cache()
+
     w = torch.randn(4096, 4096, generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 0.02
     k3_case("qkvo asym", 16, to_decode_layout(quantize_groupwise(w, "int4", "asym", 128)), bf16, 20)
     k3_case("qkvo g32 fold", 64, to_decode_layout(quantize_groupwise(w, "int4", "sym", 32)), bf16, 20)
@@ -611,14 +672,14 @@ def main() -> int:
         mabs = float((got.float() - want.float()).abs().max())
         rel = rel_err(got, want)
         ok = mabs <= 1e-5 if dtype == f32 else rel <= 2e-3
-        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw), 5)
-        plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), 5)
+        ms = events_ms(lambda: flash_attention_cuda(q, k, v, **kw), 5)
+        plain_ms = events_ms(lambda: flash_attention_plain(q, k, v, **kw), 5)
         # the library call computes the same function where its causal mask
         # (aligned to the first key) is K4's: T == S and no offset, or none
         library_ms = None
         if not causal or (T == S and q_offset == 0):
             qt_, kt_, vt_ = (a.transpose(1, 2) for a in (q, k, v))
-            library_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            library_ms = events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt_, kt_, vt_, is_causal=causal, enable_gqa=H != Hkv), 5)
         pairs = sum(min(S, t + q_offset + 1) for t in range(T)) if causal else T * S  # unmasked (q, k)
         case = dict(label=label, B=B, T=T, S=S, H=H, Hkv=Hkv, D=D, causal=causal, q_offset=q_offset,
@@ -635,6 +696,7 @@ def main() -> int:
         k4_case("ragged S", 1, 1500, 1500, 32, 32, 128, True, 0, dt)
         k4_case("q_offset", 1, 512, 2048, 32, 32, 128, True, 1536, dt)
         k4_case("non-causal", 1, 1024, 1500, 32, 32, 128, False, 0, dt)
+    k4_case("head dim 64", 1, 2048, 2048, 32, 32, 64, True, 0, bf16)
     torch.cuda.empty_cache()
 
     ivf_cases = ivf_kernel_cases(torch, dev)
@@ -753,7 +815,7 @@ def main() -> int:
         torch.randn(4096, D, generator=torch.Generator(device=dev).manual_seed(3), device=dev), dim=1
     )
     iters = 20
-    ms = cuda_ms(torch, lambda: index.search(qb, k=K, method="approx_rescore", oversample=OVER), iters)
+    ms = events_ms(lambda: index.search(qb, k=K, method="approx_rescore", oversample=OVER), iters)
     qps = 4096 / (ms / 1e3)
     mem_vs_f32 = index.nbytes / (4 * D * N)
     print(f"search: recall@10 {recall:.4f} (B=256, K5), {recall16:.4f} (B=16, K1 two-tier); "
@@ -935,6 +997,9 @@ def main() -> int:
     logits_w32, logits_w32_1 = first_logits(probe), first_logits(probe, depth=1)
     generation.generate_stream = real_stream
     check(all(r["k2"] == 0 for r in recs_khalf + recs_w32), "K2 ran in no int4 request")
+    print("decode ms/token, the greedy requests: " + json.dumps(
+        {name: [r["decode_ms_per_token"] for r in recs[:2]] for name, recs in (("khalf", recs_khalf),
+                                                                              ("w32", recs_w32))}))
 
     # the prompt (< 1024 tokens) runs K1 on the khalf model, which rounds
     # q*s to bf16, and K3 on the w32 model, which keeps exact products and
@@ -1154,6 +1219,7 @@ def main() -> int:
     check(all(n > 0 for n in launches.values()), f"every kernel launched on the main path: {launches}")
 
     k1_index = next(c for c in k1_cases if c["label"] == "index scan")
+    k1_decode = next(c for c in k1_cases if c["label"] == "llama gate/up L2-cold")
     k5_full = k5_cases[0]
     k2_decode = next(c for c in k2_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
     k3_decode = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
@@ -1169,7 +1235,9 @@ def main() -> int:
                 **{key: shown.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
     summary = {"kernels": [
-        row("woq_int4", "woq_int4.cu", "quant_matmul.py:87", k1_cases, k1_index),
+        {**row("woq_int4", "woq_int4.cu", "quant_matmul.py:87", k1_cases, k1_index),
+         "gate_up_decode": {key: k1_decode[key] for key in ("M", "K", "N", "ms", "eager_ms", "k3_cold_ms",
+                                                             "bound_ms", "bound_by", "library_ms")}},
         row("woq_int8", "woq_int8.cu", "quant_matmul.py:198", k2_cases, k2_decode),
         row("scan_top2", "scan_top2.cu", "scan_topk.py:39", k5_cases, k5_full),
         row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),

@@ -4,7 +4,9 @@ Port of `intel_extension_for_transformers_tpu/ops/flash_attention.py`.
 `flash_attention` takes the JAX package's (B, T, H, D) layout and GQA
 (H a multiple of Hkv; query head h reads KV head h // (H / Hkv)). On a CUDA
 tensor it launches K4, `csrc/flash_attention.cu`, or raises; on a CPU tensor
-it runs `flash_attention_plain`, the kernel's plain version. The Pallas
+it runs `flash_attention_plain`, the kernel's plain version. K4 routes by
+dtype inside its one launch: bf16 runs on the tensor cores (mma.sync, P kept
+as a bf16 pair of ~16 bits), f32 on the SIMT first version. The Pallas
 kernel's `block_q` / `block_k` tiling knobs are TPU tiling and have no
 counterpart: K4 picks its own tiles.
 
@@ -92,6 +94,8 @@ def flash_attention_cuda(
         raise ValueError(f"K4 takes head_dim <= {MAX_HEAD_DIM} and a multiple of 8, got {D}")
     scale = scale if scale is not None else 1.0 / (D**0.5)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 kernel stages rows with 16-byte copies: an offset view is copied
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     if B == 0 or T == 0 or H == 0:
         return out

@@ -31,9 +31,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, w, scales, zeros, codebook, out, M, N, K, group_size, scheme,
-    # x_bf16, out_bf16, stream
-    "itx_woq_int4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, scales, zeros, codebook, out, part, counters, M, N, K,
+    # group_size, scheme, gemv, k_chunk, vec, x_bf16, out_bf16, stream
+    "itx_woq_int4": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, scales, zeros, out, part, M, N, K, group_size, asym, gemv,
     # k_chunk, vec, x_bf16, out_bf16, stream
     "itx_woq_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -10,7 +10,8 @@ Port of `intel_extension_for_transformers_tpu/ops/quant_matmul.py`:
    dequantized once into the compute dtype and multiplied with
    `torch.matmul` (the JAX package's dequantize-once branch; M >= 1024 was
    chosen on a TPU and has not been re-measured on the H100). Below that a
-   4-bit weight goes to K1, `csrc/woq_int4.cu`, and an int8 weight to K2,
+   4-bit weight goes to K1, `csrc/woq_int4.cu` (a split-K GEMV at M <= 8,
+   tiles above), and an int8 weight to K2,
    `csrc/woq_int8.cu`; neither writes the dequantized weight to device
    memory. K1, K2 and K3 take every shape the packing allows, so there is
    no fallback for unfriendly shapes.
@@ -24,6 +25,7 @@ inference only so far.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import replace
 from typing import Optional
@@ -83,10 +85,57 @@ def woq_matmul_plain(
     return out.to(out_dtype)
 
 
+K1_GEMV_MAX_M = 8  # K1 runs its split-K GEMV up to this many rows, tiles above
+_K1_GEMV_COLS = 128  # columns of one GEMV block (a strip)
+_k1_counters: dict = {}  # (device, stream, strips) → int32 arrival counters, one a strip
+
+
+@functools.lru_cache(maxsize=None)
+def target_blocks(device_index: int) -> int:
+    """The blocks K1's and K2's split-K plans aim for on a card: two for
+    each of its SMs (264 on an H100 SXM's 132)."""
+    return 2 * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def int4_k_chunk(N: int, K: int, group_size: int, target: int) -> int:
+    """Packed rows of K/2 that one K1 GEMV block sums (K/2 when not split).
+
+    K/2 is split on group boundaries (a chunk of g packed rows covers one
+    low-plane and one high-plane group) until the strips of 128 columns
+    times the splits reach `target` blocks, or every split is one group.
+    """
+    K2 = K // 2
+    want = -(-target // -(-N // _K1_GEMV_COLS))  # splits wanted
+    units = K2 // group_size
+    if want <= 1 or units <= 1:
+        return K2
+    return max(units // want, 1) * group_size  # at least `want` splits
+
+
+def _strip_counters(dev: torch.device, stream: torch.cuda.Stream, strips: int) -> torch.Tensor:
+    """K1's GEMV arrival counters for `strips` column strips on `stream`:
+    zeroed when made, and every launch leaves them at 0. One tensor for each
+    (device, stream, strips), made once and kept, so a decode step zeroes
+    nothing, launches on two streams never share a counter, and a CUDA graph
+    keeps valid pointers. None is made during a capture: run K1 at that N
+    once on the capturing stream before capturing."""
+    key = (dev, stream.cuda_stream, strips)
+    counters = _k1_counters.get(key)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"K1 has no strip counters for N/128 = {strips} on the capturing stream: "
+                               "run it once there before the capture")
+        counters = torch.zeros(strips, dtype=torch.int32, device=dev)
+        _k1_counters[key] = counters
+    return counters
+
+
 def woq_int4_cuda(
     x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """Launch K1 on x2 (M, K), f32 or bf16, contiguous, on a CUDA device."""
+    """Launch K1 on x2 (M, K), f32 or bf16, on a CUDA device: the split-K
+    GEMV at M <= 8, the tiles above. One launch either way."""
     from intel_extension_for_transformers_tpu_torch.ops.kernels import (
         check,
         load_kernels,
@@ -94,6 +143,7 @@ def woq_int4_cuda(
 
     M, K = x2.shape
     dev = x2.device
+    g = qt.group_size
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on a CUDA device, got {dev}")
     if x2.dtype not in (torch.float32, torch.bfloat16):
@@ -102,8 +152,8 @@ def woq_int4_cuda(
         raise TypeError(f"K1 writes f32 or bf16, got {out_dtype}")
     if qt.bits != 4 or qt.data.shape != (K // 2, qt.N) or qt.data.device != dev:
         raise ValueError("K1 needs a khalf int4 weight of shape (K/2, N) on x's device")
-    if (K // 2) % qt.group_size or qt.scales.shape != (K // qt.group_size, qt.N):
-        raise ValueError(f"group_size {qt.group_size} must divide K/2 = {K // 2}")
+    if (K // 2) % g or qt.scales.shape != (K // g, qt.N):
+        raise ValueError(f"group_size {g} must divide K/2 = {K // 2}")
     x2 = x2.contiguous()
     data = qt.data.contiguous()
     scales = qt.scales.to(torch.float32).contiguous()
@@ -117,12 +167,27 @@ def woq_int4_cuda(
     out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
     if M == 0 or qt.N == 0:
         return out
+    gemv = M <= K1_GEMV_MAX_M
+    k_chunk = int4_k_chunk(qt.N, K, g, target_blocks(dev.index)) if gemv else K // 2
+    splits = -(-(K // 2) // k_chunk)
+    stream = torch.cuda.current_stream(dev)
+    if splits > 1:  # f32 partials a split, summed by the last block of each strip
+        part = torch.empty((splits, M, qt.N), dtype=torch.float32, device=dev)
+        counters = _strip_counters(dev, stream, -(-qt.N // _K1_GEMV_COLS))
+    else:
+        part = counters = out  # unread
+    aligned = scales.data_ptr() % 16 == 0 and zeros.data_ptr() % 16 == 0
+    if qt.N % 16 == 0 and data.data_ptr() % 16 == 0 and aligned:
+        vec = 2
+    elif qt.N % 4 == 0 and data.data_ptr() % 4 == 0 and aligned:
+        vec = 1
+    else:
+        vec = 0
     status = load_kernels().itx_woq_int4(
         x2.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        codebook.data_ptr(), out.data_ptr(),
-        M, qt.N, K, qt.group_size, _SCHEME_IDS[scheme],
-        int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        codebook.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        M, qt.N, K, g, _SCHEME_IDS[scheme], int(gemv), k_chunk, vec,
+        int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream.cuda_stream,
     )
     check(status, "itx_woq_int4")
     woq_int4_cuda.launches += 1
@@ -132,14 +197,13 @@ def woq_int4_cuda(
 woq_int4_cuda.launches = 0
 
 K2_GEMV_MAX_M = 8  # K2 runs its GEMV kernel up to this many rows, tiles above
-K2_TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's SMs
 _K2_TILE_K = 32  # the tiled kernel's K step
 
 
-def int8_k_chunk(M: int, N: int, K: int, group_size: int) -> int:
+def int8_k_chunk(M: int, N: int, K: int, group_size: int, target: int) -> int:
     """Rows of K that one K2 block sums (K itself when K is not split).
 
-    K is split until the blocks reach `K2_TARGET_BLOCKS`: on group
+    K is split until the blocks reach `target`: on group
     boundaries for the GEMV (128 columns a block), on 32-row steps for the
     tiles (64 columns by 16 or 64 rows). Every split holds at least one row.
     """
@@ -147,7 +211,7 @@ def int8_k_chunk(M: int, N: int, K: int, group_size: int) -> int:
         blocks, unit = -(-N // 128), group_size
     else:
         blocks, unit = -(-N // 64) * -(-M // (16 if M <= 16 else 64)), _K2_TILE_K
-    want = -(-K2_TARGET_BLOCKS // blocks)
+    want = -(-target // blocks)
     if want <= 1:
         return K
     units = -(-K // unit)
@@ -186,7 +250,7 @@ def woq_int8_cuda(
     if M == 0 or qt.N == 0:
         return out
     gemv = M <= K2_GEMV_MAX_M
-    k_chunk = int8_k_chunk(M, qt.N, K, g)
+    k_chunk = int8_k_chunk(M, qt.N, K, g, target_blocks(dev.index))
     splits = -(-K // k_chunk)
     part = torch.empty((splits, M, qt.N), dtype=torch.float32, device=dev) if splits > 1 else out
     vec = (qt.N % 4 == 0 and data.data_ptr() % 4 == 0

@@ -9,7 +9,8 @@ quantizes it to int4 (RTN, sym, g = 128) and runs under `torch.profiler`:
    (K4 in every layer, K3 in every product);
 3. the same decode on the model built again and quantized to int8 as
    `load_in_8bit` resolves it (RTN, sym, g = 128: K2);
-4. K1, K3 and K2 alone at M = 1 on the decode products with a cold L2.
+4. K1, K3 and K2 alone at M = 1 on the decode products with a cold L2,
+   eager and replayed from a CUDA graph (the device time alone).
 
 Device time is the sum of the kernel rows of `key_averages()` (the rows
 whose device type is CUDA; an operator's row repeats its kernels' time and
@@ -52,8 +53,10 @@ DECODE_STEPS = 8
 PROMPT_TOKENS = 340
 WINDOW = 2048
 # the kernel names of the port's hand-written kernels, as the profiler shows them
-# (K2's split-K partials are summed by its own splitk_sum kernel)
-KERNELS = {"woq_int4_kernel": "K1", "woq_int8": "K2", "splitk_sum": "K2", "woq_w32": "K3", "flash_kernel": "K4"}
+# (K1: its tiles and its M <= 8 GEMV; K2's split-K partials are summed by its
+# own splitk_sum kernel; K4: bf16 on the tensor cores, f32 SIMT)
+KERNELS = {"woq_int4_kernel": "K1", "woq_int4_gemv": "K1", "woq_int8": "K2", "splitk_sum": "K2",
+           "woq_w32": "K3", "flash_tc_kernel": "K4", "flash_kernel": "K4"}
 
 
 def _device_us(evt) -> float:
@@ -124,11 +127,47 @@ def profile_scoring(model, config, ids) -> None:
     print("scoring window " + json.dumps({"tokens": len(ids), "ms_unprofiled": ms_unprofiled, **rec}))
 
 
+def events_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of `fn` over `iters` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, x, weights, out_dtype=torch.bfloat16, calls: int = 80) -> tuple[float, float]:
+    """→ (graph ms, eager ms) a call of fn(x, w, out_dtype), over `calls`
+    calls cycling through `weights` (more bytes than the L2 holds), as a
+    decode step meets its products. The graph time replays the calls from a
+    CUDA graph: the device time alone. The eager time includes the host's
+    cost a call where it exceeds the kernel's."""
+    def run():
+        for i in range(calls):
+            fn(x, weights[i % len(weights)], out_dtype)
+
+    eager = events_ms(run, 1, warmup=1) / calls
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()  # on the capturing stream first: K1 keeps its strip counters a stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        run()
+    return events_ms(graph.replay, 3, warmup=1) / calls, eager
+
+
 def cold_gemv(dev) -> None:
     """K1 (khalf), K3 (w32) and K2 (int8) at M = 1 on the Llama-2-7B
-    products, cycling through 8 copies of the weight (>= 67 MB, more than
-    the 50 MB L2), as a decode step meets them. GB/s counts the packed
-    weight's bytes: K*N/2 for int4, K*N for int8."""
+    products, by `cold_ms` over 8 copies of the weight (>= 67 MB, more than
+    the 50 MB L2). GB/s counts the packed weight's bytes over the graph
+    time: K*N/2 for int4, K*N for int8."""
     x = torch.randn(1, 11008, device=dev).to(torch.bfloat16)
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
         w = torch.randn(K, N, device=dev) * 0.02
@@ -139,16 +178,8 @@ def cold_gemv(dev) -> None:
         xk = x[:, :K].contiguous()
         for name, fn, ws in (("k1", woq_int4_cuda, qts), ("k3", woq_w32_cuda, [to_decode_layout(q) for q in qts]),
                              ("k2", woq_int8_cuda, q8s)):
-            for q in ws:
-                fn(xk, q, torch.bfloat16)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for i in range(80):
-                fn(xk, ws[i % 8], torch.bfloat16)
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / 80
-            row[name + "_cold_ms"] = ms
+            ms, row[name + "_cold_ms"] = cold_ms(fn, xk, ws)
+            row[name + "_graph_ms"] = ms
             row[name + "_GBps"] = K * N / (1 if name == "k2" else 2) / (ms * 1e-3) / 1e9
         print("cold gemv " + json.dumps(row))
 

@@ -57,6 +57,93 @@ def test_woq_int4_kernel_matches_plain(dev, weight_dtype, scheme, M, K, N, g, x_
     assert _rel(got, want) <= tol
 
 
+# K1's split-K GEMV (M <= 8) against the same plain twin and bars. N = 4096
+# and 11008 take 16-byte weight words at M = 1, N = 4100 (not a multiple of
+# 16) 4-byte words; K/2 = 2048 splits over 4-8 blocks a strip.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("M", [1, 2, 8])
+@pytest.mark.parametrize("weight_dtype,scheme", [("int4", "sym"), ("int4", "asym"), ("nf4", "sym"), ("fp4", "sym")])
+@pytest.mark.parametrize("N", [4096, 11008, 4100])
+def test_woq_int4_gemv_matches_plain(dev, N, weight_dtype, scheme, M, dtype, tol):
+    K = 4096
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    x = torch.randn(M, K, device=dev, generator=gen).to(dtype)
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, weight_dtype, scheme, 128)
+    assert -(-(K // 2) // quant_matmul.int4_k_chunk(N, K, 128, quant_matmul.target_blocks(dev.index))) > 1
+    before = quant_matmul.woq_int4_cuda.launches
+    got = quant_matmul.woq_int4_cuda(x, qt, dtype)
+    again = quant_matmul.woq_int4_cuda(x, qt, dtype)
+    want = quant_matmul.woq_matmul_plain(x, qt, dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul.woq_int4_cuda.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= tol
+    key = (x.device, torch.cuda.current_stream().cuda_stream, -(-N // 128))
+    assert not quant_matmul._k1_counters[key].any()  # the strips' counters are back to 0
+
+
+# An x that starts 2 bytes past an aligned address (element loads), with one
+# split (K/2 = 128 is one group) and with several; and odd N (byte loads).
+@pytest.mark.parametrize("K,N,g", [(256, 4096, 128), (4096, 4096, 128), (4096, 1001, 64)])
+def test_woq_int4_gemv_unaligned_x_and_splits(dev, K, N, g):
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    base = torch.randn(1, K + 1, device=dev, generator=gen).to(torch.bfloat16)
+    x = base[:, 1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int4", "sym", g)
+    got = quant_matmul.woq_int4_cuda(x, qt, torch.float32)
+    want = quant_matmul.woq_matmul_plain(x.contiguous(), qt, torch.float32)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, quant_matmul.woq_int4_cuda(x, qt, torch.float32))
+
+
+def test_woq_int4_small_m_reaches_the_gemv(dev):
+    """M <= 8 launches the split-K GEMV, which makes the stream's strip
+    counters at first use; M = 9 the tiles, which need none. `woq_matmul`
+    sends a khalf int4 weight at M < 1024 to K1, once."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    K, N = 4096, 4096
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int4", "sym", 128)
+    key = (dev, torch.cuda.current_stream().cuda_stream, N // 128)
+    for M, gemv in ((1, True), (8, True), (9, False)):
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+        quant_matmul._k1_counters.pop(key, None)
+        before = quant_matmul.woq_int4_cuda.launches
+        quant_matmul.woq_matmul(x, qt)
+        torch.cuda.synchronize()
+        assert quant_matmul.woq_int4_cuda.launches == before + 1
+        assert (key in quant_matmul._k1_counters) == gemv, M
+
+
+def test_woq_int4_gemv_in_a_cuda_graph(dev):
+    """The GEMV replays from a CUDA graph with the bits of an eager call,
+    once it has run on the capturing stream; a capture on a stream it has
+    not run on raises instead of making counters inside the graph."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    K, N = 4096, 4096 + 128
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int4", "sym", 128)
+    x = torch.randn(1, K, device=dev, generator=gen).to(torch.bfloat16)
+    want = quant_matmul.woq_int4_cuda(x, qt, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    quant_matmul._k1_counters.pop((x.device, side.cuda_stream, N // 128), None)
+    with pytest.raises(RuntimeError, match="capturing stream"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            quant_matmul.woq_int4_cuda(x, qt, torch.bfloat16)
+    with torch.cuda.stream(side):
+        quant_matmul.woq_int4_cuda(x, qt, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = quant_matmul.woq_int4_cuda(x, qt, torch.bfloat16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 # K2 against its plain twin, which rounds the same way (bf16(s), exact q - z,
 # q·s rounded once to bf16): the two differ only in summation order (split-K
 # partials, warps), so f32 outputs hold 1e-5 relative; a bf16 output adds
@@ -159,7 +246,9 @@ def test_woq_w32_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dtyp
 
 # K4 against the plain f32 attention: unit-normal inputs, f32 scores and
 # softmax on both sides in another order, so f32 outputs agree to 1e-5
-# absolute; bf16 outputs to one bf16 rounding (2e-3 relative).
+# absolute; bf16 outputs (tensor cores: bf16 Q, K, V exact, P as a bf16
+# pair of ~16 bits, f32 accumulators) to one bf16 rounding (2e-3 relative).
+# Two runs give the same bits.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,S,H,Hkv,D,causal,q_offset", [
     (1, 300, 300, 4, 4, 128, True, 0),
@@ -167,6 +256,13 @@ def test_woq_w32_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dtyp
     (1, 64, 500, 4, 4, 80, True, 436),  # chunked prefill offset
     (1, 70, 90, 2, 2, 40, False, 0),  # non-causal, S != T
     (1, 130, 130, 2, 1, 256, True, 0),  # the largest head dim
+    (1, 1, 1, 2, 2, 64, True, 0),  # one query, one key
+    (1, 1, 700, 4, 4, 128, True, 699),  # T = 1 at the end of a long S
+    (1, 63, 63, 4, 4, 72, True, 0),  # T below a tile, D padded to 80
+    (1, 1500, 1500, 4, 4, 128, True, 0),  # ragged S
+    (1, 256, 256, 32, 8, 128, True, 0),  # GQA 32/8
+    (1, 200, 200, 8, 1, 256, True, 0),  # GQA 8/1 at D = 256
+    (1, 100, 1500, 4, 4, 64, False, 0),  # non-causal over a long S
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, T, S, H, Hkv, D, causal, q_offset, dtype):
     from intel_extension_for_transformers_tpu_torch.ops import flash_attention
@@ -175,10 +271,14 @@ def test_flash_attention_kernel_matches_plain(dev, B, T, S, H, Hkv, D, causal, q
     q = torch.randn(B, T, H, D, device=dev, generator=gen).to(dtype)
     k = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(dtype)
     v = torch.randn(B, S, Hkv, D, device=dev, generator=gen).to(dtype)
+    before = flash_attention.flash_attention_cuda.launches
     got = flash_attention.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    again = flash_attention.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
+    assert flash_attention.flash_attention_cuda.launches == before + 2
     assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
     if dtype == torch.float32:
         assert float((got - want).abs().max()) <= 1e-5
     else:

@@ -89,3 +89,42 @@ def test_woq_matmul_ref_matches_jax_ref():
     want = jqm.woq_matmul_ref(jnp.asarray(x), jq)
     got = tqm.woq_matmul_ref(torch.from_numpy(x), tq)
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-5
+
+
+H100_BLOCKS = 2 * 132  # `target_blocks` on an H100 SXM: two blocks for each of its 132 SMs
+
+
+@pytest.mark.parametrize("N,K,g", [
+    (4096, 4096, 128), (11008, 4096, 128), (4096, 11008, 128),  # the Llama-2-7B decode products
+    (768, 768, 128), (300, 256, 64), (1001, 4096, 64), (100_000, 768, 64),
+])
+def test_int4_k_chunk_splits_on_group_boundaries(N, K, g):
+    """K1's split-K GEMV: K/2 splits on group boundaries (one low-plane and
+    one high-plane group a unit), covers K/2 with no empty split, and splits
+    until the 128-column strips reach two blocks an SM or every split is one
+    group."""
+    K2 = K // 2
+    chunk = tqm.int4_k_chunk(N, K, g, H100_BLOCKS)
+    splits = -(-K2 // chunk)
+    assert chunk % g == 0 and 0 < chunk <= K2
+    assert (splits - 1) * chunk < K2 <= splits * chunk
+    strips = -(-N // 128)
+    assert strips * splits >= H100_BLOCKS or splits == K2 // g
+    assert splits == 1 or chunk == g or strips * splits < 2 * H100_BLOCKS  # no more than it takes
+
+
+def test_int4_k_chunk_llama_plans():
+    assert tqm.int4_k_chunk(4096, 4096, 128, H100_BLOCKS) == 128  # 32 strips x 16 splits
+    assert tqm.int4_k_chunk(11008, 4096, 128, H100_BLOCKS) == 512  # 86 strips x 4 splits
+    assert tqm.int4_k_chunk(4096, 11008, 128, H100_BLOCKS) == 512  # 32 strips x 11 splits
+    assert tqm.int4_k_chunk(4096, 256, 128, H100_BLOCKS) == 128  # one group: one split
+    assert tqm.int4_k_chunk(100_000, 768, 64, H100_BLOCKS) == 384  # 782 strips: no split
+
+
+def test_int4_on_a_cpu_tensor_never_launches_k1():
+    x, _, tq = _operands(3, "int4", "sym", seed=4)
+    before = tqm.woq_int4_cuda.launches
+    tqm.woq_matmul(torch.from_numpy(x), tq)
+    assert tqm.woq_int4_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        tqm.woq_int4_cuda(torch.from_numpy(x), tq, torch.float32)

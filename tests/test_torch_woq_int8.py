@@ -94,15 +94,16 @@ def test_int8_dequantize_once_branch(dtype):
 
 def test_int8_k_chunk_splits_on_group_boundaries():
     """K2's split-K: GEMV splits on group boundaries, tiles on 32-row steps,
-    none where the tiles alone give two blocks an SM; no split is empty."""
+    none where the tiles alone give two blocks an SM (264 on an H100's 132
+    SMs); no split is empty."""
     for M, N, K, g in ((1, 4096, 4096, 128), (1, 4096, 11008, 128), (8, 300, 1024, 32),
                        (16, 4096, 4096, 128), (300, 300, 256, 64), (512, 4096, 4096, 128)):
-        chunk = tqm.int8_k_chunk(M, N, K, g)
+        chunk = tqm.int8_k_chunk(M, N, K, g, 2 * 132)
         splits = -(-K // chunk)
         assert chunk % (g if M <= tqm.K2_GEMV_MAX_M else 32) == 0 or chunk == K
         assert (splits - 1) * chunk < K
-    assert tqm.int8_k_chunk(1, 4096, 4096, 128) == 512  # 32 column strips x 8 splits
-    assert tqm.int8_k_chunk(512, 4096, 4096, 128) == 4096  # 512 tiles: no split
+    assert tqm.int8_k_chunk(1, 4096, 4096, 128, 2 * 132) == 512  # 32 column strips x 8 splits
+    assert tqm.int8_k_chunk(512, 4096, 4096, 128, 2 * 132) == 4096  # 512 tiles: no split
 
 
 def test_int8_on_a_cpu_tensor_never_launches_k2():
