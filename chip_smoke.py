@@ -15,9 +15,10 @@ kernel against its plain PyTorch version on the card:
      shapes, with
      errors, CUDA-event times and each case's bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak rate of
-     their type); K4 also beside `scaled_dot_product_attention`, K1's sym
-     int4 bf16 rows beside `torch._weight_int4pack_mm`, and K1 at M = 1 on
-     the Llama decode products with a cold L2 beside K3 on the same; faults
+     their type); K4 also beside `scaled_dot_product_attention`, K1's and
+     K3's sym int4 bf16 rows beside `torch._weight_int4pack_mm`, K1 and K3
+     beside dequantize + `torch.matmul` (as K2), and K1 at M = 1 on the
+     Llama decode products with a cold L2 beside K3 on the same; faults
      planted in K6's inputs (scales one group late, int4 nibbles swapped)
      must fail the K6 bar;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
@@ -54,7 +55,9 @@ kernel against its plain PyTorch version on the card:
      f32 weights, and again with two faults planted, which the bar must
      reject.
 
-Each kernel wrapper counts its launches. The counts are zeroed just before
+Each kernel wrapper counts its launches (K1 and K3 also those of their
+tensor-core tiles: the khalf prefill and the B = 16 search run K1's, the w32
+prefill and scoring K3's). The counts are zeroed just before
 each main-path phase (3-4, 5's generations, 6, 7, 8's reload and
 generations) and read just after it, and
 every kernel must have launched on the main path. The line before the last
@@ -371,6 +374,7 @@ def main() -> int:
     )
     from intel_extension_for_transformers_tpu_torch.ops.packing import (
         dequantize,
+        from_decode_layout,
         quantize_groupwise,
         to_decode_layout,
     )
@@ -398,6 +402,11 @@ def main() -> int:
     )
     from intel_extension_for_transformers_tpu_torch.utils.device import require_cuda
     from intel_extension_for_transformers_tpu_torch.utils.profile_llama import cold_ms, events_ms
+    from intel_extension_for_transformers_tpu_torch.utils.profile_woq_tiles import (
+        int4pack_khalf,
+        int4pack_mm,
+        int4pack_w32,
+    )
 
     # ---- phase 0: the card ----
     dev = require_cuda()
@@ -422,30 +431,17 @@ def main() -> int:
     k1_cases = []
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def int4pack(qt):
-        """A sym int4 weight repacked once for `torch._weight_int4pack_mm`:
-        signed nibble u -> u + 8, two K rows a byte with the even row high,
-        bf16 scales and zero points of 0 (w = (u + 8 - 8) * s)."""
-        from intel_extension_for_transformers_tpu_torch.ops.packing import unpack_int4
-
-        u = (unpack_int4(qt.data, signed=True).to(torch.int32) + 8).T.contiguous()  # (N, K) in [0, 15]
-        packed = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
-        s = qt.scales.to(bf16)
-        return packed, qt.group_size, torch.stack([s, torch.zeros_like(s)], dim=2).contiguous()  # (K/g, N, 2)
-
-    def int4pack_mm(x, packed, _out_dtype):
-        return torch._weight_int4pack_mm(x, *packed)
-
-    def int4pack_ms(x, qts, want):
-        """K1's library yardstick for sym int4 bf16 products: one
+    def int4pack_ms(x, qts, want, repack=int4pack_khalf):
+        """K1's and K3's library yardstick for sym int4 bf16 products: one
         `torch._weight_int4pack_mm` call on weights repacked outside the
-        timing, its output within 2e-3 of the plain version on qts[0] first.
-        One weight is timed L2-warm by events, several L2-cold by `cold_ms`'s
-        graph replay, as K1 is. → (ms or None, what was done)."""
+        timing (`repack` of each), its output within 2e-3 of `want` (a plain
+        version that rounds each weight to bf16, as the call does) on qts[0]
+        first. One weight is timed L2-warm by events, several L2-cold by
+        `cold_ms`'s graph replay, as K1 is. → (ms or None, what was done)."""
         if not (hasattr(torch, "_weight_int4pack_mm") and hasattr(torch, "_convert_weight_to_int4pack")):
             return None, f"torch {torch.__version__} has no _weight_int4pack_mm"
         try:
-            packs = [int4pack(qt) for qt in qts]
+            packs = [repack(qt) for qt in qts]
             lib = int4pack_mm(x, packs[0], bf16)
             torch.cuda.synchronize()
         except (RuntimeError, TypeError) as e:
@@ -491,7 +487,7 @@ def main() -> int:
     k1_case("index scan", 16, 768, 100_000, 64, "int4", "sym", bf16, bf16, bf16)
     # the khalf Llama-2-7B decode products (phase 5's first run)
     for K, N, lbl in ((4096, 4096, "llama qkvo"), (4096, 11008, "llama gate/up"), (11008, 4096, "llama down")):
-        for M in (1, 2, 8, 16):  # the GEMV at M <= 8, the 16-row tiles at 16
+        for M in (1, 2, 8, 16):  # the GEMV at M = 1, the tensor-core tiles (16 rows) above
             k1_case(lbl, M, K, N, 128, "int4", "sym", bf16, bf16, f32)
     k1_case("llama qkvo", 512, 4096, 4096, 128, "int4", "sym", bf16, bf16, f32)  # beside K2 at M = 512
 
@@ -522,14 +518,15 @@ def main() -> int:
         check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K2 {label} M={M} rel {rel} > {bar}")
         k2_cases.append(case)
 
-    def dequant_matmul_row(label, qt):
+    def dequant_matmul_row(name, kernel, label, qt, Ms):
         """The M >= 1024 branch (dequantize into bf16 once + torch.matmul)
-        beside K2 at M = 1, 512 and 1024: data for the open threshold question."""
-        row = dict(label=label, K=qt.K, N=qt.N)
-        for M in (1, 512, 1024):
+        beside a WOQ kernel at the rows Ms: data for the open threshold
+        question."""
+        row = dict(kernel=name, label=label, K=qt.K, N=qt.N)
+        for M in Ms:
             x = torch.randn(M, qt.K, generator=torch.Generator(device=dev).manual_seed(M), device=dev).to(bf16)
             row[f"dequant_matmul_ms_M{M}"] = events_ms(lambda: torch.matmul(x, dequantize(qt, bf16)), 10)
-            row[f"k2_ms_M{M}"] = events_ms(lambda: woq_int8_cuda(x, qt, bf16), 10)
+            row[f"{name.lower()}_ms_M{M}"] = events_ms(lambda: kernel(x, qt, bf16), 3 if M == 2048 else 10)
         print("dequant_matmul " + json.dumps(row))
         dequant_rows.append(row)
 
@@ -541,7 +538,13 @@ def main() -> int:
             k2_case(lbl, M, qt, bf16)
         for M in (1, 64):
             k2_case(lbl, M, qt, f32)
-        dequant_matmul_row(lbl, qt)
+        dequant_matmul_row("K2", woq_int8_cuda, lbl, qt, (1, 512, 1024))
+        w = torch.randn(K, N, generator=torch.Generator(device=dev).manual_seed(K + N + 3), device=dev) * 0.02
+        q4 = quantize_groupwise(w, "int4", "sym", 128)
+        del w
+        dequant_matmul_row("K1", woq_int4_cuda, lbl, q4, (16, 512, 1024))
+        dequant_matmul_row("K3", woq_w32_cuda, lbl, to_decode_layout(q4), (16, 512, 2048))
+        del q4
     w = torch.randn(4096, 4096, generator=torch.Generator(device=dev).manual_seed(6), device=dev) * 0.02
     k2_case("qkvo asym", 16, quantize_groupwise(w, "int8", "asym", 128), bf16)
     k2_case("qkvo g32", 64, quantize_groupwise(w, "int8", "sym", 32), bf16)
@@ -601,9 +604,17 @@ def main() -> int:
         bar = 1e-4 if x_dtype == f32 else 2e-3
         ms = events_ms(lambda: woq_w32_cuda(x, qt, x_dtype), iters)
         plain_ms = events_ms(lambda: woq_w32_plain(x, qt, x_dtype), iters)
+        library_ms, why = None, "no one PyTorch call computes this product in f32 or with a zero point"
+        if x_dtype == bf16 and qt.scheme == "sym":
+            # the call rounds each weight to bf16 (q * s), as K1 does, where K3
+            # keeps exact products: held to K1's plain version on the same
+            # weight, its gap to K3's plain version reported beside it
+            library_ms, why = int4pack_ms(x, [qt], woq_matmul_plain(x, from_decode_layout(qt), bf16), int4pack_w32)
+            if library_ms is not None:
+                why += f"; {rel_err(int4pack_mm(x, int4pack_w32(qt), bf16), want):.2e} from K3's plain version"
         case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
                     dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
-                    ms=ms, plain_ms=plain_ms,
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=why,
                     **bound(nbytes(x, qt.data, qt.scales, qt.zeros, got), 2 * M * qt.K * qt.N,
                             str(x_dtype)[6:]))
         print("K3 " + json.dumps(case))
@@ -708,16 +719,24 @@ def main() -> int:
                 "woq_w32": woq_w32_cuda, "flash_attention": flash_attention_cuda,
                 "ivf_scan_topk": ivf_scan_topk_cuda, "ivf_scan_candidates": ivf_scan_candidates_cuda}
 
+    tiled = {"woq_int4": woq_int4_cuda, "woq_w32": woq_w32_cuda}  # they count their tensor-core tiles too
+    tile_launches = {k: 0 for k in tiled}
+
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+        for fn in tiled.values():
+            fn.tile_launches = 0
 
     def add_counts(phase_name):
         got = {k: fn.launches for k, fn in counters.items()}
         for k, n in got.items():
             launches[k] += n
-        print(f"{phase_name} launches: {json.dumps(got)}")
-        return got
+        tiles = {k: fn.tile_launches for k, fn in tiled.items()}
+        for k, n in tiles.items():
+            tile_launches[k] += n
+        print(f"{phase_name} launches: {json.dumps(got)}; on the tensor-core tiles: {json.dumps(tiles)}")
+        return {**got, **{k + "_tiles": n for k, n in tiles.items()}}
 
     # ---- main path, phases 3-4: counts from here to the end of phase 4 ----
     zero_counts()
@@ -825,6 +844,7 @@ def main() -> int:
 
     rag_counts = add_counts("phases 3-4")
     check(rag_counts["woq_int4"] > 0 and rag_counts["scan_top2"] > 0, "K1 and K5 ran in phases 3-4")
+    check(rag_counts["woq_int4_tiles"] > 0, "K1's tensor-core tiles ran in phases 3-4 (the B = 16 search)")
 
     # the reranker's scores on the card against the plain path on the CPU
     query, hits, out = reranked[0]
@@ -970,7 +990,8 @@ def main() -> int:
 
     zero_counts()
     recs_khalf = run_requests("khalf", plan)
-    add_counts("phase 5 (khalf)")
+    c5 = add_counts("phase 5 (khalf)")
+    check(c5["woq_int4_tiles"] >= len(plan), "K1's tensor-core tiles ran in every khalf prefill")
     check(all(r["k1"] > 0 and r["k3"] == 0 for r in recs_khalf), "K1, not K3, ran inside generate_stream")
     probe = recs_khalf[0]["ids"]
     # every int4 product of the khalf first step, with its input and output
@@ -992,7 +1013,8 @@ def main() -> int:
     print(f"prepare_for_inference: w32 repack of {n_woq} linears in {time.perf_counter() - t0:.2f} s")
     zero_counts()
     recs_w32 = run_requests("w32", plan[:2])
-    add_counts("phase 5 (w32)")
+    c5 = add_counts("phase 5 (w32)")
+    check(c5["woq_w32_tiles"] >= 2, "K3's tensor-core tiles ran in every w32 prefill")
     check(all(r["k3"] > 0 and r["k1"] == 0 for r in recs_w32), "K3, not K1, ran inside generate_stream")
     logits_w32, logits_w32_1 = first_logits(probe), first_logits(probe, depth=1)
     generation.generate_stream = real_stream
@@ -1064,6 +1086,7 @@ def main() -> int:
     check(np.isfinite(ppl["perplexity"]), "perplexity is finite")
     check(c6["flash_attention"] == SCORE_WINDOWS * lcfg.num_hidden_layers, "K4 ran once per layer per window")
     check(c6["woq_w32"] == SCORE_WINDOWS * n_woq and c6["woq_int4"] == 0, "K3 ran every int4 product")
+    check(c6["woq_w32_tiles"] == c6["woq_w32"], "every K3 product of the windows ran on the tensor-core tiles")
 
     window = torch.tensor([ids[:SCORE_WINDOW]], device=dev)
     logits_flash, _ = llama_apply(bot.params, lcfg, window)
@@ -1223,6 +1246,9 @@ def main() -> int:
     k5_full = k5_cases[0]
     k2_decode = next(c for c in k2_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
     k3_decode = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
+    k3_tiles = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 2048 and c["dtype"] == "bfloat16")
+    k1_tiles = next(c for c in k1_cases if c["label"] == "llama qkvo" and c["M"] == 512)
+    shown = ("M", "K", "N", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k4_window = next(c for c in k4_cases if c["label"] == "llama-2-7b window" and c["dtype"] == "bfloat16")
     k6_int8 = ivf_cases["K6"][0]
     k7_hi = ivf_cases["K7"][0]
@@ -1236,11 +1262,15 @@ def main() -> int:
 
     summary = {"kernels": [
         {**row("woq_int4", "woq_int4.cu", "quant_matmul.py:87", k1_cases, k1_index),
+         "tile_launches": tile_launches["woq_int4"],
          "gate_up_decode": {key: k1_decode[key] for key in ("M", "K", "N", "ms", "eager_ms", "k3_cold_ms",
-                                                             "bound_ms", "bound_by", "library_ms")}},
+                                                             "bound_ms", "bound_by", "library_ms")},
+         "qkvo_tiles": {key: k1_tiles[key] for key in shown}},
         row("woq_int8", "woq_int8.cu", "quant_matmul.py:198", k2_cases, k2_decode),
         row("scan_top2", "scan_top2.cu", "scan_topk.py:39", k5_cases, k5_full),
-        row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),
+        {**row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),
+         "tile_launches": tile_launches["woq_w32"],
+         "gate_up_tiles": {key: k3_tiles[key] for key in shown}},
         row("flash_attention", "flash_attention.cu", "flash_attention.py:38", k4_cases, k4_window),
         row("ivf_scan_topk", "ivf_scan.cu", "ivf_scan.py:178", ivf_cases["K6"], k6_int8),
         row("ivf_scan_candidates", "ivf_scan.cu", "ivf_scan.py:511", ivf_cases["K7"], k7_hi),

@@ -21,9 +21,12 @@
 // Bound on the H100: at the small M this kernel serves (M < 1024: decode,
 // reranker pairs, single-query index scans) the packed weight, K*N/2 bytes,
 // is the traffic that matters (a Llama-2-7B 4096 -> 11008 product: 22.5 MB,
-// 6.7 us at 3.35 TB/s); as M grows the FMA rate takes over.
+// 6.7 us at 3.35 TB/s); as M grows the operations take over (989 TFLOP/s
+// in bf16 on the tensor cores, 67 TFLOP/s in f32 on the SIMT tiles).
 // Design:
-//  * M <= 8, a split-K GEMV (woq_int4_gemv): a block owns 128 columns. Each
+//  * M <= K1_GEMV_MAX_M (ops/quant_matmul.py: 1, since the tiles below are
+//    faster from M = 2 on the H100; the kernel takes up to 8 rows), a
+//    split-K GEMV (woq_int4_gemv): a block owns 128 columns. Each
 //    lane reads adjacent columns of a packed row as one word, 16 bytes
 //    (8 lanes a row, 4 rows a warp) where N and the pointers allow, else 4
 //    bytes (32 lanes a row), else byte by byte; a warp reads whole 128-byte
@@ -37,17 +40,32 @@
 //    __threadfence + atomicAdd) sums them in split order, writes out and
 //    resets its counter to 0. One launch, no float atomics: every run gives
 //    the same bits.
-//  * 9 <= M < 1024, tiles: a block owns a BM x 64 output tile and walks K/2
-//    in steps of 32 packed rows. Each step decodes every packed byte once,
-//    both nibbles with their scales, into a float tile in shared memory that
-//    all BM rows reuse, so the dequantized weight never reaches device
-//    memory. The product is a SIMT FMA loop over a 4x4 (BM = 64) or 1x4
-//    (BM = 16, for M <= 16) register tile per thread.
-// Tensor cores (mma/wgmma) for the tiles are later work.
+//  * Above it, bf16 x, g a multiple of 32: the tensor-core tiles of woq_tc.cuh
+//    (Int4Tile below). A stage is 32 packed rows r0..: their bytes for 128
+//    columns by cp.async, and two x slices, x[:, r0:] (low nibbles) and
+//    x[:, K/2 + r0:] (high nibbles), so one stage feeds four k-steps. A
+//    B-fragment register holds two K rows of one column: two bytes of
+//    neighbouring packed rows, decoded two weights at a time with the
+//    GEMV's bf16x2 arithmetic (128 + u from a bit pattern, an exact
+//    offset, bf16(u - z), bf16(q * s); codebooks through a bf16 table), so
+//    the tiles round exactly as the Pallas kernel and dq<true> do. The whole
+//    stage is decoded once a block into a bf16 tile in shared memory that
+//    the warps read by ldmatrix.trans (on the H100 faster at every shape
+//    measured than each warp decoding its own columns from byte loads,
+//    PERF.md). The tiles' partial sums move into the f32 accumulators once
+//    a stage.
+//  * Otherwise (f32 x, or g not a multiple of 32): tiled SIMT. A block owns
+//    a BM x 64 output tile and walks K/2 in steps of 32 packed rows. Each
+//    step decodes every packed byte once, both nibbles with their scales,
+//    into a float tile in shared memory that all BM rows reuse. The product
+//    is a SIMT FMA loop over a 4x4 (BM = 64) or 1x4 (BM = 16, for M <= 16)
+//    register tile per thread.
+// Later work (ROADMAP): wgmma + TMA for the tiles; f32 x on the tensor cores.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "woq_tc.cuh"
 
 namespace {
 
@@ -145,14 +163,9 @@ __device__ __forceinline__ float dq(int u, float s, float z, const float* cb, in
   return kBF16 ? itx::round_bf16(w) : w;
 }
 
-// a * b + c on bf16 pairs, rounded once (to nearest even) to bf16.
-__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-constexpr uint32_t kBf16x2One = 0x3F803F80u;
-constexpr uint32_t kBf16x2NegZero = 0x80008000u;
+using itx::bf16x2_fma;
+using itx::kBf16x2NegZero;
+using itx::kBf16x2One;
 constexpr uint32_t kBf16x2Sign = 0x80008000u;
 
 template <typename TX, typename TO, int TM, int CPL, bool kVec>
@@ -433,10 +446,168 @@ woq_int4_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+
+// ---- above the GEMV, bf16 x: tensor-core tiles (woq_tc.cuh) ---------------
+// Two nibbles (bits 0-3 of each half of v) -> bf16x2 weights, rounded as
+// dq<true>: s2 and -z2 are bf16 pairs, cbs the bf16 codebook.
+__device__ __forceinline__ uint32_t tc_decode(uint32_t v, int scheme, uint32_t s2, uint32_t nz2,
+                                              const uint16_t* cbs) {
+  if (scheme == kCodebook) {
+    const uint32_t q = cbs[v & 0xFu] | (static_cast<uint32_t>(cbs[v >> 16]) << 16);
+    return itx::bf16x2_fma(q, s2, itx::kBf16x2NegZero);
+  }
+  // 0x4300 | v is the bf16 128 + v: sym nibbles (flipped in bit 3) take off
+  // 136, asym 128, both exact
+  if (scheme == kSym) v ^= 0x00080008u;
+  uint32_t q = itx::bf16x2_fma(0x43004300u | v, itx::kBf16x2One,
+                                  scheme == kSym ? 0xC308C308u : 0xC300C300u);
+  if (scheme == kAsym) q = itx::bf16x2_fma(q, itx::kBf16x2One, nz2);  // bf16(u - z)
+  return itx::bf16x2_fma(q, s2, itx::kBf16x2NegZero);                // bf16(q * s)
+}
+
+// B-fragment policy over the khalf bytes: a stage is packed rows r0..r0+31
+// (rows past K/2 arrive as zeros). Slice 0 is the low plane (K rows r0..),
+// slice 1 the high plane (K rows K/2 + r0..), both in group r0 / g of their
+// half. begin_stage decodes the whole stage into a bf16 tile bs[plane][row]
+// [column] (each thread 4 columns of DCOLS packed rows, both planes); k-step
+// ks of a slice reads its B fragments from rows 16 ks.. of the slice's plane
+// by ldmatrix.trans.
+template <int BM>
+struct Int4Tile {
+  using S = itx_tc::Shape<BM>;
+  static constexpr int BK = 32, SLICES = 2;
+  static constexpr int PROW = itx_tc::kBN + 16;  // bytes a staged packed row (padded)
+  static constexpr int W_BYTES = BK * PROW;
+  static constexpr int BROW = itx_tc::kBN + 8;   // bf16 a decoded row (padded: ldmatrix without bank conflicts)
+  static constexpr int EXTRA_BYTES = 32 + 2 * BK * BROW * 2;
+  static constexpr int DCOLS = BK * (itx_tc::kBN / 4) / S::THREADS;  // 4-byte words a thread decodes
+
+  uint16_t* cbs;      // the bf16 codebook (16 entries)
+  __nv_bfloat16* bs;  // [2][BK][BROW], the decoded stage
+  int scheme, wn, lane;
+  uint32_t sp[2][2], nzp[2][2];  // s and -z of columns (4c, 4c + 1) and (4c + 2, 4c + 3), each plane
+  uint32_t tw[S::NT][2];         // B fragments of the current k-step (two n8 fragments an ldmatrix)
+
+  __device__ Int4Tile(const itx_tc::Params& p, unsigned char* extra, int, int wn_, int lane_)
+      : cbs(reinterpret_cast<uint16_t*>(extra)),
+        bs(reinterpret_cast<__nv_bfloat16*>(extra + 32)),
+        scheme(p.scheme), wn(wn_), lane(lane_) {
+    if (threadIdx.x < 16)
+      cbs[threadIdx.x] = p.scheme == kCodebook ? __bfloat16_as_ushort(__float2bfloat16(p.codebook[threadIdx.x])) : 0;
+  }
+
+  __device__ static int x_col(const itx_tc::Params& p, int sl, int r0) { return sl ? p.K / 2 + r0 : r0; }
+  __device__ static int x_limit(const itx_tc::Params& p, int sl) { return sl ? p.K : p.K / 2; }
+
+  __device__ static void load_w(unsigned char* ws, const itx_tc::Params& p, int r0, int n0) {
+    const auto* w = static_cast<const uint8_t*>(p.w);
+    constexpr int CPR = itx_tc::kBN / 16;  // 16-byte pieces a row
+    if (p.w_aligned && n0 + itx_tc::kBN <= p.N && r0 + BK <= p.span) {
+      const uint8_t* src = w + static_cast<size_t>(r0) * p.N + n0;
+      itx_tc::for_each_piece<BK * CPR, S::THREADS>([&](int i) {
+        const int r = i / CPR, c = (i % CPR) * 16;
+        itx::cp_async16(ws + r * PROW + c, src + static_cast<size_t>(r) * p.N + c, true);
+      });
+      return;
+    }
+    itx_tc::for_each_piece<BK * CPR, S::THREADS>([&](int i) {
+      const int r = r0 + i / CPR, c = (i % CPR) * 16;
+      const int n = n0 + c;
+      unsigned char* d = ws + (i / CPR) * PROW + c;
+      if (r >= p.span || n >= p.N) {
+        itx::cp_async16(d, w, false);
+      } else {
+        const uint8_t* src = w + static_cast<size_t>(r) * p.N + n;
+        if (p.w_aligned && n + 16 <= p.N) {
+          itx::cp_async16(d, src, true);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) d[e] = n + e < p.N ? src[e] : 0;
+        }
+      }
+    });
+  }
+
+  // s (and -z) of column n, group row g of the (K/g, N) arrays, rounded to bf16
+  __device__ static void group_scale(const itx_tc::Params& p, size_t row, int n, uint16_t& s, uint16_t& nz) {
+    const bool in = n < p.N;
+    s = __bfloat16_as_ushort(__float2bfloat16(in ? p.scales[row + n] : 0.f));
+    nz = p.scheme == kAsym ? __bfloat16_as_ushort(__float2bfloat16(in ? p.zeros[row + n] : 0.f)) ^ 0x8000u : 0;
+  }
+
+  __device__ void begin_stage(const itx_tc::Params& p, const unsigned char* ws, int r0) {
+    const int g = p.group_size;
+    const size_t glo = static_cast<size_t>(r0 / g), ghi = glo + static_cast<size_t>(p.span / g);
+    const int c = threadIdx.x % 32;  // this thread's word column: columns 4c..4c+3
+    const int n = blockIdx.x * itx_tc::kBN + 4 * c;
+    if (r0 % g == 0) {  // a new group: its scales (and zero points) for this thread's columns
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint16_t s0, z0, s1, z1;
+          group_scale(p, (pl ? ghi : glo) * p.N, n + 2 * h, s0, z0);
+          group_scale(p, (pl ? ghi : glo) * p.N, n + 2 * h + 1, s1, z1);
+          sp[pl][h] = s0 | (static_cast<uint32_t>(s1) << 16);
+          nzp[pl][h] = z0 | (static_cast<uint32_t>(z1) << 16);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < DCOLS; ++i) {
+      const int r = threadIdx.x / 32 + (S::THREADS / 32) * i;
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(ws + r * PROW + 4 * c);
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl) {
+        const uint32_t nib = (pl ? word >> 4 : word) & 0x0F0F0F0Fu;
+        uint2 o;
+        o.x = tc_decode(__byte_perm(nib, 0u, 0x4140), scheme, sp[pl][0], nzp[pl][0], cbs);  // columns 4c, 4c + 1
+        o.y = tc_decode(__byte_perm(nib, 0u, 0x4342), scheme, sp[pl][1], nzp[pl][1], cbs);  // 4c + 2, 4c + 3
+        *reinterpret_cast<uint2*>(bs + (pl * BK + r) * BROW + 4 * c) = o;
+      }
+    }
+    __syncthreads();  // the decoded stage is complete
+  }
+
+  __device__ void a_hook(const uint32_t (&)[S::MT][4]) {}
+
+  __device__ void b_frag(const unsigned char*, int sl, int ks, int ni, uint32_t& b0, uint32_t& b1) {
+    // one ldmatrix.x4.trans gives fragments ni and ni + 1: matrix q of lane
+    // i is k rows 16 ks + 8 (q & 1).., columns 8 (q >> 1)..
+    if (ni % 2 == 0) {
+      const int q = lane / 8;
+      const __nv_bfloat16* src = bs + (sl * BK + 16 * ks + 8 * (q & 1) + lane % 8) * BROW + wn + 8 * ni +
+                                 8 * (q >> 1);
+      uint32_t r[4];
+      itx::ldsm_x4_trans(src, r);
+      tw[ni][0] = r[0];
+      tw[ni][1] = r[1];
+      tw[ni + 1][0] = r[2];
+      tw[ni + 1][1] = r[3];
+    }
+    b0 = tw[ni][0];
+    b1 = tw[ni][1];
+  }
+
+  __device__ void end_stage(const itx_tc::Params&, float (&acc)[S::MT][S::NT][4],
+                            float (&part)[S::MT][S::NT][4], int) {
+#pragma unroll
+    for (int mi = 0; mi < S::MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < S::NT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mi][ni][e] += part[mi][ni][e];
+          part[mi][ni][e] = 0.f;
+        }
+  }
+};
+
+enum Route { kSimtTiles = 0, kGemv = 1, kTensorTiles = 2 };
+
 template <typename TX, typename TO>
 void launch(const void* x, const void* w, const void* scales, const void* zeros,
             const void* codebook, void* out, void* part, void* counters, int M, int N, int K,
-            int group_size, int scheme, int gemv, int k_chunk, int vec, cudaStream_t stream) {
+            int group_size, int scheme, int route, int k_chunk, int vec, cudaStream_t stream) {
   const dim3 block(kThreads);
   const auto* xp = static_cast<const TX*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
@@ -444,7 +615,7 @@ void launch(const void* x, const void* w, const void* scales, const void* zeros,
   const auto* zp = static_cast<const float*>(zeros);
   const auto* cp = static_cast<const float*>(codebook);
   auto* op = static_cast<TO*>(out);
-  if (gemv) {
+  if (route == kGemv) {
     auto* pp = static_cast<float*>(part);
     auto* cnt = static_cast<int*>(counters);
     const dim3 grid((N + kGemvCols - 1) / kGemvCols, (K / 2 + k_chunk - 1) / k_chunk);
@@ -479,27 +650,44 @@ void launch(const void* x, const void* w, const void* scales, const void* zeros,
 
 // x: (M, K) f32 or bf16 (x_bf16 = 1); w: int8 (K/2, N); scales, zeros: f32
 // (K/g, N) (zeros unused unless scheme == 1); codebook: f32[16] (unused
-// unless scheme == 2); out: (M, N) f32 or bf16 (out_bf16 = 1). gemv = 1
-// (M <= 8) selects the split-K GEMV: k_chunk packed rows a split, a multiple
-// of group_size; part is an f32 (splits, M, N) workspace and counters holds
-// ceil(N / 128) ints that are 0, both unread with one split; vec = 2 when
-// N % 16 == 0 and w, scales and zeros allow 16-byte loads, 1 when N % 4 == 0
-// and w allows 4-byte and scales and zeros 16-byte loads, else 0. Returns
-// cudaGetLastError() after the launch.
+// unless scheme == 2); out: (M, N) f32 or bf16 (out_bf16 = 1). route picks
+// the kernel:
+//  * 1 (M <= 8): the split-K GEMV, k_chunk packed rows a split, a multiple
+//    of group_size; part is an f32 (splits, M, N) workspace and counters
+//    holds ceil(N / 128) ints that are 0, both unread with one split; vec =
+//    2 when N % 16 == 0 and w, scales and zeros allow 16-byte loads, 1 when
+//    N % 4 == 0 and w allows 4-byte and scales and zeros 16-byte loads, else 0;
+//  * 2: the tensor-core tiles (bf16 x, g % 32 == 0) with BM = bm rows,
+//    split along K/2 into k_chunk
+//    packed rows (a multiple of g) with part and counters as above, one
+//    counter an output tile (ceil(M / bm) * ceil(N / 128)); vec = 1 when x
+//    (and K) allow 16-byte copies, + 2 when w (and N) do;
+//  * 0: the SIMT tiles.
+// Returns the launch's CUDA error (cudaGetLastError()).
 extern "C" int itx_woq_int4(const void* x, const void* w, const void* scales,
                             const void* zeros, const void* codebook, void* out, void* part,
                             void* counters, int M, int N, int K, int group_size, int scheme,
-                            int gemv, int k_chunk, int vec, int x_bf16, int out_bf16,
+                            int route, int bm, int k_chunk, int vec, int x_bf16, int out_bf16,
                             void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (route == kTensorTiles) {
+    if (!x_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    itx_tc::Params p{static_cast<const __nv_bfloat16*>(x), w, static_cast<const float*>(scales),
+                     static_cast<const float*>(zeros), static_cast<const float*>(codebook), out,
+                     static_cast<float*>(part), static_cast<int*>(counters), M, N, K, K / 2,
+                     group_size, scheme, k_chunk, out_bf16, vec & 1, (vec >> 1) & 1};
+    const cudaError_t err = itx_tc::launch_bm<Int4Tile>(p, bm, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (x_bf16 && out_bf16) {
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, gemv, k_chunk, vec, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, route, k_chunk, vec, s);
   } else if (x_bf16) {
-    launch<__nv_bfloat16, float>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, gemv, k_chunk, vec, s);
+    launch<__nv_bfloat16, float>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, route, k_chunk, vec, s);
   } else if (out_bf16) {
-    launch<float, __nv_bfloat16>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, gemv, k_chunk, vec, s);
+    launch<float, __nv_bfloat16>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, route, k_chunk, vec, s);
   } else {
-    launch<float, float>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, gemv, k_chunk, vec, s);
+    launch<float, float>(x, w, scales, zeros, codebook, out, part, counters, M, N, K, group_size, scheme, route, k_chunk, vec, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

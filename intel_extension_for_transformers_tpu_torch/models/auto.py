@@ -21,7 +21,7 @@ Every entry point that builds a model runs on the card unless `device`
 names another. HF `transformers` is imported only to load a checkpoint or a
 tokenizer by name (`_load_hf`, `_load_tokenizer`). Not ported yet, and
 raising `NotImplementedError`: beam search (`num_beams > 1`, ROADMAP queue 1
-step 10), the generic decoder families (step 5) and T5 /
+step 1), the generic decoder families (step 5) and T5 /
 `AutoModelForSeq2SeqLM` (step 10).
 """
 
@@ -134,7 +134,7 @@ class CausalLM(_ModelBase):
 
     def generate(self, input_ids, sampling: Optional[SamplingConfig] = None, **kw) -> np.ndarray:
         if kw.get("num_beams", 1) > 1:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, step 10)")
+            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, step 1)")
         kw.pop("num_beams", None)
         return _generate(self.params, self.config, input_ids, sampling, **kw)
 

@@ -60,10 +60,10 @@ class BaseModel:
                 "(ROADMAP queue 1, step 1): pass LoadingModelConfig(preloaded=(model, config, tokenizer))"
             )
         if loading.tensor_parallel > 1 or loading.world_size > 1:
-            raise NotImplementedError("sharding a chat model is not ported yet (ROADMAP queue 1, step 9)")
+            raise NotImplementedError("sharding a chat model is not ported yet (ROADMAP queue 1, step 7)")
         if loading.assistant_model is not None:
             raise NotImplementedError(
-                "speculative decoding with an assistant model is not ported yet (ROADMAP queue 1, step 4)"
+                "speculative decoding with an assistant model is not ported yet (ROADMAP queue 1, step 1)"
             )
         self.params, self.model_config, self.tokenizer = loading.preloaded
         if loading.optimization_config is not None:
@@ -141,7 +141,7 @@ class BaseModel:
         if prompt == query:
             prompt = self.prepare_prompt(query, config.task)
         if getattr(config, "num_beams", 1) > 1 and not config.do_sample:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, step 4)")
+            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, step 1)")
 
         from intel_extension_for_transformers_tpu_torch.models.generation import (
             detokenize_stream,

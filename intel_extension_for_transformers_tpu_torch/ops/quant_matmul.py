@@ -10,8 +10,9 @@ Port of `intel_extension_for_transformers_tpu/ops/quant_matmul.py`:
    dequantized once into the compute dtype and multiplied with
    `torch.matmul` (the JAX package's dequantize-once branch; M >= 1024 was
    chosen on a TPU and has not been re-measured on the H100). Below that a
-   4-bit weight goes to K1, `csrc/woq_int4.cu` (a split-K GEMV at M <= 8,
-   tiles above), and an int8 weight to K2,
+   4-bit weight goes to K1, `csrc/woq_int4.cu` (a split-K GEMV at M = 1,
+   tiles above: on the tensor cores for bf16 x, `csrc/woq_tc.cuh`), and an
+   int8 weight to K2,
    `csrc/woq_int8.cu`; neither writes the dequantized weight to device
    memory. K1, K2 and K3 take every shape the packing allows, so there is
    no fallback for unfriendly shapes.
@@ -85,15 +86,23 @@ def woq_matmul_plain(
     return out.to(out_dtype)
 
 
-K1_GEMV_MAX_M = 8  # K1 runs its split-K GEMV up to this many rows, tiles above
+# K1 runs its split-K GEMV (which takes up to 8 rows) up to this many rows,
+# tiles above: on the H100 the tensor-core tiles beat the GEMV from M = 2 on
+# the Llama-2-7B products by device time, the GEMV keeps M = 1 (PERF.md)
+K1_GEMV_MAX_M = 1
 _K1_GEMV_COLS = 128  # columns of one GEMV block (a strip)
-_k1_counters: dict = {}  # (device, stream, strips) → int32 arrival counters, one a strip
+_k1_counters: dict = {}  # (device, stream, count) → int32 arrival counters, one a strip or tile
+_TILE_BN = 128  # columns of one tensor-core tile (csrc/woq_tc.cuh)
+# K1's tensor-core tiles take at most 64 rows a tile (two blocks an SM): on
+# the H100 faster than 128 from M = 512 (PERF.md)
+K1_TILE_MAX_BM = 64
+_K1_ROUTES = {"simt": 0, "gemv": 1, "tiles": 2}
 
 
 @functools.lru_cache(maxsize=None)
 def target_blocks(device_index: int) -> int:
-    """The blocks K1's and K2's split-K plans aim for on a card: two for
-    each of its SMs (264 on an H100 SXM's 132)."""
+    """The blocks K1's, K2's and K3's split-K plans aim for on a card: two
+    for each of its SMs (264 on an H100 SXM's 132)."""
     return 2 * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
@@ -113,29 +122,92 @@ def int4_k_chunk(N: int, K: int, group_size: int, target: int) -> int:
     return max(units // want, 1) * group_size  # at least `want` splits
 
 
+def tile_bm(M: int, max_bm: int = 128) -> int:
+    """Rows of one tensor-core output tile: the least of 16, 32, 64 and 128
+    that holds M, else the largest; at most max_bm."""
+    return min(next((bm for bm in (16, 32, 64) if M <= bm), 128), max_bm)
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_plan(M: int, N: int, span: int, group_size: int, target: int, max_bm: int = 128) -> tuple:
+    """(BM, k_chunk) of a tensor-core tile launch of K1 (max_bm 64) or K3.
+
+    The walk is `span` rows of K (K1: K/2 packed rows; K3: K rounded up to
+    g), split on group boundaries when the BM x 128 output tiles are fewer
+    than `target` blocks: the splits, about equal, reach `target` blocks or
+    are one group each. k_chunk == span: no split.
+    """
+    bm = tile_bm(M, max_bm)
+    tiles = -(-N // _TILE_BN) * -(-M // bm)
+    want = -(-target // tiles)  # splits wanted
+    units = -(-span // group_size)
+    if want <= 1 or units <= 1:
+        return bm, span
+    chunk = -(-units // want)
+    while chunk > 1 and -(-units // chunk) < want:
+        chunk -= 1
+    chunk = -(-units // -(-units // chunk))  # the same splits, as equal as they go
+    return bm, min(chunk * group_size, span)
+
+
+K3_GEMV_MAX_M = 8  # K3 runs its GEMV up to this many rows (csrc/woq_w32.cu), tiles above
+
+
+def _tile_route(x2: torch.Tensor, M: int, group_size: int, gemv_max_m: int) -> bool:
+    """Whether K1 or K3 takes the tensor-core tiles: above its GEMV's rows,
+    with bf16 x and a group size that is a multiple of 32."""
+    return x2.dtype == torch.bfloat16 and M > gemv_max_m and group_size % 32 == 0
+
+
+def k1_route(x2: torch.Tensor, M: int, group_size: int) -> str:
+    """K1's kernel for x2 (M, K): "gemv" (M <= K1_GEMV_MAX_M), the
+    tensor-core "tiles" or the "simt" tiles."""
+    if M <= K1_GEMV_MAX_M:
+        return "gemv"
+    return "tiles" if _tile_route(x2, M, group_size, K1_GEMV_MAX_M) else "simt"
+
+
 def _strip_counters(dev: torch.device, stream: torch.cuda.Stream, strips: int) -> torch.Tensor:
-    """K1's GEMV arrival counters for `strips` column strips on `stream`:
-    zeroed when made, and every launch leaves them at 0. One tensor for each
-    (device, stream, strips), made once and kept, so a decode step zeroes
-    nothing, launches on two streams never share a counter, and a CUDA graph
-    keeps valid pointers. None is made during a capture: run K1 at that N
-    once on the capturing stream before capturing."""
+    """Split-K arrival counters for `strips` column strips (K1's GEMV) or
+    output tiles (K1's and K3's tensor-core tiles) on `stream`: zeroed when
+    made, and every launch leaves them at 0. One tensor for each (device,
+    stream, strips), made once and kept, so a decode step zeroes nothing,
+    launches on two streams never share a counter, and a CUDA graph keeps
+    valid pointers. None is made during a capture: run the kernel at that
+    shape once on the capturing stream before capturing."""
     key = (dev, stream.cuda_stream, strips)
     counters = _k1_counters.get(key)
     if counters is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"K1 has no strip counters for N/128 = {strips} on the capturing stream: "
-                               "run it once there before the capture")
+            raise RuntimeError(f"no split-K counters for {strips} strips or tiles on the capturing stream: "
+                               "run the kernel once there before the capture")
         counters = torch.zeros(strips, dtype=torch.int32, device=dev)
         _k1_counters[key] = counters
     return counters
+
+
+def _split_workspace(dev, M: int, N: int, span: int, k_chunk: int, count: int, out: torch.Tensor):
+    """(part, counters) of a launch that splits `span` rows into k_chunk
+    ones: f32 partials a call and the stream's kept counters, `count` of
+    them; `out` twice (unread) without a split."""
+    splits = -(-span // k_chunk)
+    if splits == 1:
+        return out, out
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+    return part, _strip_counters(dev, torch.cuda.current_stream(dev), count)
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def woq_int4_cuda(
     x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
     """Launch K1 on x2 (M, K), f32 or bf16, on a CUDA device: the split-K
-    GEMV at M <= 8, the tiles above. One launch either way."""
+    GEMV at M <= K1_GEMV_MAX_M; above it the tensor-core tiles for bf16 x
+    with g a multiple of 32, else the SIMT tiles (`k1_route`). One launch
+    either way."""
     from intel_extension_for_transformers_tpu_torch.ops.kernels import (
         check,
         load_kernels,
@@ -167,34 +239,40 @@ def woq_int4_cuda(
     out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
     if M == 0 or qt.N == 0:
         return out
-    gemv = M <= K1_GEMV_MAX_M
-    k_chunk = int4_k_chunk(qt.N, K, g, target_blocks(dev.index)) if gemv else K // 2
-    splits = -(-(K // 2) // k_chunk)
-    stream = torch.cuda.current_stream(dev)
-    if splits > 1:  # f32 partials a split, summed by the last block of each strip
-        part = torch.empty((splits, M, qt.N), dtype=torch.float32, device=dev)
-        counters = _strip_counters(dev, stream, -(-qt.N // _K1_GEMV_COLS))
+    K2, N = K // 2, qt.N
+    bm, route = 0, k1_route(x2, M, g)
+    if route == "gemv":
+        k_chunk = int4_k_chunk(N, K, g, target_blocks(dev.index))
+        count = -(-N // _K1_GEMV_COLS)
+        aligned = _aligned16(scales, zeros)
+        if N % 16 == 0 and _aligned16(data) and aligned:
+            vec = 2
+        elif N % 4 == 0 and data.data_ptr() % 4 == 0 and aligned:
+            vec = 1
+        else:
+            vec = 0
+    elif route == "simt":
+        k_chunk, count, vec = K2, 0, 0
     else:
-        part = counters = out  # unread
-    aligned = scales.data_ptr() % 16 == 0 and zeros.data_ptr() % 16 == 0
-    if qt.N % 16 == 0 and data.data_ptr() % 16 == 0 and aligned:
-        vec = 2
-    elif qt.N % 4 == 0 and data.data_ptr() % 4 == 0 and aligned:
-        vec = 1
-    else:
-        vec = 0
+        bm, k_chunk = tile_plan(M, N, K2, g, target_blocks(dev.index), K1_TILE_MAX_BM)
+        count = -(-N // _TILE_BN) * -(-M // bm)
+        vec = int(K % 16 == 0 and _aligned16(x2)) + 2 * int(N % 16 == 0 and _aligned16(data))
+    part, counters = _split_workspace(dev, M, N, K2, k_chunk, count, out)
     status = load_kernels().itx_woq_int4(
         x2.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
         codebook.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
-        M, qt.N, K, g, _SCHEME_IDS[scheme], int(gemv), k_chunk, vec,
-        int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream.cuda_stream,
+        M, N, K, g, _SCHEME_IDS[scheme], _K1_ROUTES[route], bm, k_chunk, vec,
+        int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status, "itx_woq_int4")
     woq_int4_cuda.launches += 1
+    woq_int4_cuda.tile_launches += route == "tiles"
     return out
 
 
 woq_int4_cuda.launches = 0
+woq_int4_cuda.tile_launches = 0  # the launches of the tensor-core tiles among them
 
 K2_GEMV_MAX_M = 8  # K2 runs its GEMV kernel up to this many rows, tiles above
 _K2_TILE_K = 32  # the tiled kernel's K step
@@ -326,7 +404,9 @@ def woq_w32_plain(
 def woq_w32_cuda(
     x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """Launch K3 on x2 (M, K), f32 or bf16, on a CUDA device."""
+    """Launch K3 on x2 (M, K), f32 or bf16, on a CUDA device: the GEMV at
+    M <= 8; above it the tensor-core tiles for bf16 x with g a multiple of
+    32 (both branches), else the SIMT tiles. One launch either way."""
     from intel_extension_for_transformers_tpu_torch.ops.kernels import (
         check,
         load_kernels,
@@ -356,18 +436,28 @@ def woq_w32_cuda(
     out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
     if M == 0 or qt.N == 0:
         return out
+    N = qt.N
+    bm, k_chunk, vec, span = 0, 0, 0, _round_up(K, g)  # bm 0: the GEMV or the SIMT tiles
+    part = counters = out  # unread
+    if _tile_route(x2, M, g, K3_GEMV_MAX_M):
+        bm, k_chunk = tile_plan(M, N, span, g, target_blocks(dev.index))
+        vec = int(K % 8 == 0 and _aligned16(x2)) + 2 * int(N % 4 == 0 and _aligned16(words))
+        part, counters = _split_workspace(dev, M, N, span, k_chunk, -(-N // _TILE_BN) * -(-M // bm), out)
     status = load_kernels().itx_woq_w32(
         x2.data_ptr(), words.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-        M, qt.N, K, Kp, g, int(asym), int(w32_m1_path(M, g)),
+        part.data_ptr(), counters.data_ptr(),
+        M, N, K, Kp, g, int(asym), int(w32_m1_path(M, g)), bm, k_chunk, vec,
         int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status, "itx_woq_w32")
     woq_w32_cuda.launches += 1
+    woq_w32_cuda.tile_launches += bm > 0
     return out
 
 
 woq_w32_cuda.launches = 0
+woq_w32_cuda.tile_launches = 0  # the launches of the tensor-core tiles among them
 
 
 def woq_matmul(

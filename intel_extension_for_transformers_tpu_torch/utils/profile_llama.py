@@ -3,7 +3,8 @@
 Builds `LlamaConfig.llama2_7b()` from random bf16 weights (seed 11),
 quantizes it to int4 (RTN, sym, g = 128) and runs under `torch.profiler`:
 
-1. 8 greedy decode steps of `generate_stream` after a 340-token prompt, on
+1. the prefill of a 340-token prompt (time to the first token, then
+   profiled) and 8 greedy decode steps of `generate_stream` after it, on
    the khalf model (K1), then again after `prepare_for_inference` (K3);
 2. one 2048-token scoring window of `evaluate_perplexity` on the w32 model
    (K4 in every layer, K3 in every product);
@@ -28,6 +29,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -53,10 +55,11 @@ DECODE_STEPS = 8
 PROMPT_TOKENS = 340
 WINDOW = 2048
 # the kernel names of the port's hand-written kernels, as the profiler shows them
-# (K1: its tiles and its M <= 8 GEMV; K2's split-K partials are summed by its
-# own splitk_sum kernel; K4: bf16 on the tensor cores, f32 SIMT)
-KERNELS = {"woq_int4_kernel": "K1", "woq_int4_gemv": "K1", "woq_int8": "K2", "splitk_sum": "K2",
-           "woq_w32": "K3", "flash_tc_kernel": "K4", "flash_kernel": "K4"}
+# (K1: its SIMT tiles, its GEMV and its tensor-core tiles, tile_kernel<Int4Tile>;
+# K2's split-K partials are summed by its own splitk_sum kernel; K3: its GEMV,
+# SIMT tiles and tile_kernel<W32Tile>; K4: bf16 on the tensor cores, f32 SIMT)
+KERNELS = {"woq_int4_kernel": "K1", "woq_int4_gemv": "K1", "Int4Tile": "K1", "woq_int8": "K2",
+           "splitk_sum": "K2", "woq_w32": "K3", "W32Tile": "K3", "flash_tc_kernel": "K4", "flash_kernel": "K4"}
 
 
 def _device_us(evt) -> float:
@@ -95,7 +98,19 @@ def _profiled(fn) -> dict:
 
 
 def profile_decode(model, config, ids, layout: str) -> None:
-    it = generate_stream(model, config, ids, SamplingConfig(max_new_tokens=4 + 2 * DECODE_STEPS + 1))
+    """The prefill of `ids` (time to the first token, unprofiled, then
+    profiled), then decode steps."""
+    sampling = SamplingConfig(max_new_tokens=4 + 2 * DECODE_STEPS + 1)
+    next(generate_stream(model, config, ids, sampling))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    next(generate_stream(model, config, ids, sampling))  # ends in the first token's copy to the host
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    rec = _profiled(lambda: next(generate_stream(model, config, ids, sampling)))
+    print(f"prefill {layout} " + json.dumps({"prompt_tokens": int(np.asarray(ids).size), "ttft_ms_unprofiled": ttft_ms,
+                                             **{k: rec[k] for k in ("wall_ms", "device_busy_ms", "device_busy_share",
+                                                                    "device_ms_by_kernel", "top")}}))
+    it = generate_stream(model, config, ids, sampling)
     for _ in range(4):  # prefill and warm-up steps
         next(it)
     torch.cuda.synchronize()

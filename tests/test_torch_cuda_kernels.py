@@ -57,14 +57,17 @@ def test_woq_int4_kernel_matches_plain(dev, weight_dtype, scheme, M, K, N, g, x_
     assert _rel(got, want) <= tol
 
 
-# K1's split-K GEMV (M <= 8) against the same plain twin and bars. N = 4096
-# and 11008 take 16-byte weight words at M = 1, N = 4100 (not a multiple of
-# 16) 4-byte words; K/2 = 2048 splits over 4-8 blocks a strip.
+# K1's split-K GEMV against the same plain twin and bars, at each M its
+# kernel takes (1-8; `woq_matmul` sends it M <= K1_GEMV_MAX_M = 1, the tiles
+# beating it above on the card). N = 4096 and 11008 take 16-byte weight
+# words at M = 1, N = 4100 (not a multiple of 16) 4-byte words; K/2 = 2048
+# splits over 4-8 blocks a strip.
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-3)])
 @pytest.mark.parametrize("M", [1, 2, 8])
 @pytest.mark.parametrize("weight_dtype,scheme", [("int4", "sym"), ("int4", "asym"), ("nf4", "sym"), ("fp4", "sym")])
 @pytest.mark.parametrize("N", [4096, 11008, 4100])
-def test_woq_int4_gemv_matches_plain(dev, N, weight_dtype, scheme, M, dtype, tol):
+def test_woq_int4_gemv_matches_plain(dev, monkeypatch, N, weight_dtype, scheme, M, dtype, tol):
+    monkeypatch.setattr(quant_matmul, "K1_GEMV_MAX_M", 8)
     K = 4096
     gen = torch.Generator(device=dev).manual_seed(M + N)
     x = torch.randn(M, K, device=dev, generator=gen).to(dtype)
@@ -100,21 +103,26 @@ def test_woq_int4_gemv_unaligned_x_and_splits(dev, K, N, g):
 
 
 def test_woq_int4_small_m_reaches_the_gemv(dev):
-    """M <= 8 launches the split-K GEMV, which makes the stream's strip
-    counters at first use; M = 9 the tiles, which need none. `woq_matmul`
+    """M = 1 launches the split-K GEMV, which makes the stream's strip
+    counters at first use (32 strips here); M = 9 in f32 the SIMT tiles,
+    which need none; M = 8 and 9 in bf16 the tensor-core tiles, split 16
+    ways over 32 output tiles, which need 32 counters too. `woq_matmul`
     sends a khalf int4 weight at M < 1024 to K1, once."""
     gen = torch.Generator(device=dev).manual_seed(3)
     K, N = 4096, 4096
     qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int4", "sym", 128)
     key = (dev, torch.cuda.current_stream().cuda_stream, N // 128)
-    for M, gemv in ((1, True), (8, True), (9, False)):
-        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    for M, dtype, counted in ((1, torch.bfloat16, True), (8, torch.bfloat16, True), (9, torch.float32, False),
+                              (9, torch.bfloat16, True)):
+        assert quant_matmul.k1_route(torch.empty(0, dtype=dtype), M, 128) == (
+            "gemv" if M == 1 else "simt" if dtype == torch.float32 else "tiles")
+        x = torch.randn(M, K, device=dev, generator=gen).to(dtype)
         quant_matmul._k1_counters.pop(key, None)
         before = quant_matmul.woq_int4_cuda.launches
         quant_matmul.woq_matmul(x, qt)
         torch.cuda.synchronize()
         assert quant_matmul.woq_int4_cuda.launches == before + 1
-        assert (key in quant_matmul._k1_counters) == gemv, M
+        assert (key in quant_matmul._k1_counters) == counted, (M, dtype)
 
 
 def test_woq_int4_gemv_in_a_cuda_graph(dev):
@@ -138,6 +146,106 @@ def test_woq_int4_gemv_in_a_cuda_graph(dev):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         got = quant_matmul.woq_int4_cuda(x, qt, torch.bfloat16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+# K1's tensor-core tiles (bf16 x, M > 8, g a multiple of 32) against the
+# same plain twin and bars as the other routes: the twin rounds q*s (or
+# (q - z)*s, cb*s) to bf16 as the tiles do, the products are exact in f32,
+# so an f32 output differs only in summation order (1e-5) and a bf16 output
+# adds one rounding (2e-3). K/2 = 384 splits into up to 12 groups; N = 300
+# and 1001 take byte loads of the weight, 4096 16-byte copies.
+@pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("N", [300, 1001, 4096])
+@pytest.mark.parametrize("weight_dtype,scheme", [
+    ("int4", "sym"), ("int4", "asym"), ("nf4", "sym"), ("fp4", "sym"), ("int3", "asym"),
+])
+@pytest.mark.parametrize("M", [9, 16, 17, 63, 64, 333, 1023])
+def test_woq_int4_tiles_match_plain(dev, M, weight_dtype, scheme, N, g, out_dtype, tol):
+    K = 768
+    gen = torch.Generator(device=dev).manual_seed(M + N + g)
+    x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.05, weight_dtype, scheme, g)
+    got = quant_matmul.woq_int4_cuda(x, qt, out_dtype)
+    again = quant_matmul.woq_int4_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_matmul_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+    assert torch.equal(got, again)
+
+
+# K1's tiles at the Llama widths (K/2 split into several groups) on an x
+# that starts 2 bytes past an aligned address (element copies) and on an
+# aligned one.
+@pytest.mark.parametrize("weight_dtype,scheme", [("int4", "sym"), ("int4", "asym"), ("nf4", "sym")])
+@pytest.mark.parametrize("M,K,N,g", [(16, 4096, 4096, 128), (333, 4096, 1001, 64), (64, 11008, 4096, 128)])
+def test_woq_int4_tiles_unaligned_x_and_llama_widths(dev, weight_dtype, scheme, M, K, N, g):
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    base = torch.randn(M, K + 1, device=dev, generator=gen).to(torch.bfloat16)
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, weight_dtype, scheme, g)
+    for x in (base[:, :K].contiguous(), base.flatten()[1:M * K + 1].view(M, K)):
+        got = quant_matmul.woq_int4_cuda(x, qt, torch.float32)
+        want = quant_matmul.woq_matmul_plain(x.contiguous(), qt, torch.float32)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5
+        assert torch.equal(got, quant_matmul.woq_int4_cuda(x, qt, torch.float32))
+
+
+# K3's tensor-core tiles (bf16 x, M > 8, g a multiple of 32): the m1
+# branch (g = 128 at every M, g = 32 at M <= 32) and the fold branch (g = 32,
+# M > 32), sym and asym, K = 1280 < Kp = 1536 and ragged N, and the lm_head
+# shape N = 32000. Bars as for the other routes: 1e-4 for an f32 output (the
+# m1 branch subtracts 136 * s * sum(x_g) in f32), 2e-3 for a bf16 one.
+@pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("K,N", [(1280, 1001), (4096, 32000)])
+@pytest.mark.parametrize("scheme", ["sym", "asym"])
+@pytest.mark.parametrize("g", [128, 32])
+@pytest.mark.parametrize("M", [9, 16, 33, 512, 2048])
+def test_woq_w32_tiles_match_plain(dev, M, g, scheme, K, N, out_dtype, tol):
+    gen = torch.Generator(device=dev).manual_seed(M + K + N + g)
+    x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    w = torch.randn(K, N, device=dev, generator=gen) * 0.02
+    qt = packing.to_decode_layout(packing.quantize_groupwise(w, "int4", scheme, g))
+    got = quant_matmul.woq_w32_cuda(x, qt, out_dtype)
+    again = quant_matmul.woq_w32_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_w32_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+    assert torch.equal(got, again)
+
+
+# Split tile launches are deterministic (the last block of a tile sums the
+# partials in split order): two launches give the same bits, and a CUDA-graph
+# replay gives the eager bits once the kernel has run on the capturing
+# stream (which makes that stream's tile counters).
+@pytest.mark.parametrize("layout", ["khalf", "w32"])
+def test_woq_split_tiles_are_deterministic_and_replay_from_a_graph(dev, layout):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    K, N, M = 4096, 4096 + 128, 16
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int4", "sym", 128)
+    if layout == "w32":
+        qt, fn, span = packing.to_decode_layout(qt), quant_matmul.woq_w32_cuda, K
+    else:
+        fn, span = quant_matmul.woq_int4_cuda, K // 2
+    bm, chunk = quant_matmul.tile_plan(M, N, span, 128, quant_matmul.target_blocks(dev.index))
+    assert -(-span // chunk) > 1
+    x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    want = fn(x, qt, torch.bfloat16)
+    assert torch.equal(want, fn(x, qt, torch.bfloat16))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, qt, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = fn(x, qt, torch.bfloat16)
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()

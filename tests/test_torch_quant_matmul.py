@@ -128,3 +128,73 @@ def test_int4_on_a_cpu_tensor_never_launches_k1():
     assert tqm.woq_int4_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA device"):
         tqm.woq_int4_cuda(torch.from_numpy(x), tq, torch.float32)
+
+
+# The tensor-core tile planner of K1 and K3 (csrc/woq_tc.cuh): the walk is
+# K/2 packed rows for K1 and K rounded up to g for K3.
+@pytest.mark.parametrize("M,N,span,g", [
+    (16, 4096, 2048, 128), (16, 11008, 2048, 128), (16, 4096, 5504, 128),  # K1, Llama at M = 16
+    (16, 4096, 4096, 128), (16, 11008, 4096, 128), (16, 4096, 11008, 128),  # K3, Llama at M = 16
+    (512, 4096, 2048, 128), (2048, 4096, 4096, 128), (2048, 32000, 4096, 128),
+    (9, 300, 128, 32), (33, 1001, 640, 64), (1023, 4096, 2048, 32), (16, 100_000, 384, 64),
+])
+def test_tile_plan_splits_on_group_boundaries(M, N, span, g):
+    """Splits fall on group boundaries, cover the walk with no empty split,
+    and reach two blocks an SM or one group a split; no more splits than it
+    takes."""
+    bm, chunk = tqm.tile_plan(M, N, span, g, H100_BLOCKS)
+    splits = -(-span // chunk)
+    assert chunk % g == 0 and 0 < chunk <= span
+    assert (splits - 1) * chunk < span <= splits * chunk
+    tiles = -(-N // 128) * -(-M // bm)
+    assert tiles * splits >= H100_BLOCKS or splits == -(-span // g)
+    # no more splits than it takes: no chunk that gives fewer splits reaches the target
+    units = -(-span // g)
+    fewer = [-(-units // c) for c in range(1, units + 1) if -(-units // c) < splits]
+    assert all(tiles * n < H100_BLOCKS for n in fewer)
+
+
+def test_tile_plan_llama_plans():
+    assert tqm.tile_plan(16, 4096, 2048, 128, H100_BLOCKS) == (16, 128)  # K1 qkvo: 32 tiles x 16 splits
+    assert tqm.tile_plan(16, 11008, 2048, 128, H100_BLOCKS) == (16, 512)  # K1 gate/up: 86 tiles x 4
+    assert tqm.tile_plan(16, 4096, 5504, 128, H100_BLOCKS) == (16, 640)  # K1 down: 32 tiles x 9
+    assert tqm.tile_plan(16, 4096, 4096, 128, H100_BLOCKS) == (16, 384)  # K3 qkvo: 32 tiles x 11
+    assert tqm.tile_plan(2048, 4096, 4096, 128, H100_BLOCKS) == (128, 4096)  # scoring: 512 tiles, no split
+    assert tqm.tile_plan(2048, 32000, 4096, 128, H100_BLOCKS) == (128, 4096)
+    assert tqm.tile_plan(16, 100_000, 384, 64, H100_BLOCKS) == (16, 384)  # index scan: 782 tiles
+
+
+@pytest.mark.parametrize("M,bm", [(9, 16), (16, 16), (17, 32), (32, 32), (33, 64), (64, 64), (65, 128),
+                                  (333, 128), (2048, 128)])
+def test_tile_bm_is_picked_from_m(M, bm):
+    assert tqm.tile_bm(M) == bm
+    assert tqm.tile_plan(M, 4096, 4096, 128, H100_BLOCKS)[0] == bm
+    assert tqm.tile_plan(M, 4096, 4096, 128, H100_BLOCKS, tqm.K1_TILE_MAX_BM)[0] == min(bm, 64)  # K1's cap
+
+
+def test_tile_route_takes_bf16_above_the_gemv():
+    x = torch.zeros(16, 256, dtype=torch.bfloat16)
+    assert tqm._tile_route(x, 16, 128, tqm.K1_GEMV_MAX_M)
+    assert tqm._tile_route(x, 16, 32, tqm.K3_GEMV_MAX_M)
+    assert not tqm._tile_route(x, tqm.K1_GEMV_MAX_M, 128, tqm.K1_GEMV_MAX_M)  # the GEMV's rows
+    assert not tqm._tile_route(x, 16, 16, tqm.K3_GEMV_MAX_M)  # g not a multiple of 32: SIMT tiles
+    assert not tqm._tile_route(x.float(), 16, 128, tqm.K1_GEMV_MAX_M)  # f32 x: SIMT tiles
+
+
+def test_k1_route_by_m_dtype_and_group():
+    xb, xf = torch.zeros(16, 256, dtype=torch.bfloat16), torch.zeros(16, 256)
+    assert tqm.k1_route(xb, 1, 128) == tqm.k1_route(xf, 1, 128) == "gemv"  # M <= K1_GEMV_MAX_M = 1
+    assert tqm.k1_route(xb, 2, 128) == tqm.k1_route(xb, 1023, 64) == "tiles"
+    assert tqm.k1_route(xf, 16, 128) == "simt"  # f32 x: SIMT tiles
+    assert tqm.k1_route(xb, 16, 16) == "simt"  # g not a multiple of 32: SIMT tiles
+
+
+def test_w32_on_a_cpu_tensor_never_launches_k3():
+    x, _, tq = _operands(16, "int4", "sym", seed=5)
+    w32 = tpk.to_decode_layout(tq)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    before = tqm.woq_w32_cuda.launches
+    out = tqm.woq_matmul(xb, w32)
+    assert tqm.woq_w32_cuda.launches == before and out.shape == (16, N_RAGGED)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tqm.woq_w32_cuda(xb, w32, torch.bfloat16)
