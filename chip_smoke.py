@@ -16,9 +16,11 @@ kernel against its plain PyTorch version on the card:
      errors, CUDA-event times and each case's bound (the least time the card
      could take: bytes over 3.35 TB/s or operations over the peak rate of
      their type); K4 also beside `scaled_dot_product_attention`, K1's and
-     K3's sym int4 bf16 rows beside `torch._weight_int4pack_mm`, K1 and K3
-     beside dequantize + `torch.matmul` (as K2), and K1 at M = 1 on the
-     Llama decode products with a cold L2 beside K3 on the same; faults
+     K3's sym int4 bf16 rows beside `torch._weight_int4pack_mm`, K1, K2 and
+     K3 beside dequantize + `torch.matmul`, K2's and K5's tensor-core routes
+     beside their SIMT kernels, K5 beside the `torch.matmul` of its scores
+     alone, and K1 and K2 at M = 1 on the Llama decode products with a cold
+     L2 (K1 beside K3 on the same); faults
      planted in K6's inputs (scales one group late, int4 nibbles swapped)
      must fail the K6 bar;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
@@ -55,9 +57,10 @@ kernel against its plain PyTorch version on the card:
      f32 weights, and again with two faults planted, which the bar must
      reject.
 
-Each kernel wrapper counts its launches (K1 and K3 also those of their
-tensor-core tiles: the khalf prefill and the B = 16 search run K1's, the w32
-prefill and scoring K3's). The counts are zeroed just before
+Each kernel wrapper counts its launches (K1, K2, K3 and K5 also those on
+the tensor cores: the khalf prefill and the B = 16 search run K1's tiles,
+the w32 prefill and scoring K3's, the int8 prefill K2's, the flat search at
+B >= 64 K5's). The counts are zeroed just before
 each main-path phase (3-4, 5's generations, 6, 7, 8's reload and
 generations) and read just after it, and
 every kernel must have launched on the main path. The line before the last
@@ -372,6 +375,7 @@ def main() -> int:
         ivf_scan_candidates_cuda,
         ivf_scan_topk_cuda,
     )
+    from intel_extension_for_transformers_tpu_torch.ops import quant_matmul, scan_topk
     from intel_extension_for_transformers_tpu_torch.ops.packing import (
         dequantize,
         from_decode_layout,
@@ -495,14 +499,19 @@ def main() -> int:
     # version, which rounds q*s as the kernel does: f32 outputs within 1e-5
     # relative (summation order only), bf16 outputs within 2e-3 (one bf16
     # rounding of the output). library_ms is null: no one PyTorch call
-    # computes a group-scaled int8 product.
+    # computes a group-scaled int8 product. bf16 x above the GEMV runs the
+    # tensor-core tiles, timed beside the SIMT tiles (f32 x's route) on the
+    # same call.
     k2_cases = []
     dequant_rows = []
 
     def k2_case(label, M, qt, x_dtype, iters=20):
         gen = torch.Generator(device=dev).manual_seed(M + qt.K + qt.N)
         x = torch.randn(M, qt.K, generator=gen, device=dev).to(x_dtype)
+        route = quant_matmul.k2_route(x, M, qt.group_size)
+        tiles0 = woq_int8_cuda.tile_launches
         got = woq_int8_cuda(x, qt, x_dtype)
+        check(woq_int8_cuda.tile_launches - tiles0 == (route == "tiles"), f"K2 {label} M={M} took the {route} route")
         want = woq_matmul_plain(x, qt, x_dtype)
         torch.cuda.synchronize()
         rel = rel_err(got, want)
@@ -511,11 +520,41 @@ def main() -> int:
         ms = events_ms(lambda: woq_int8_cuda(x, qt, x_dtype), iters)
         plain_ms = events_ms(lambda: woq_matmul_plain(x, qt, x_dtype), iters)
         case = dict(label=label, M=M, K=qt.K, N=qt.N, g=qt.group_size, scheme=qt.scheme,
-                    dtype=str(x_dtype)[6:], rel_err=rel, max_abs_err=mabs, bar=bar,
+                    dtype=str(x_dtype)[6:], route=route, rel_err=rel, max_abs_err=mabs, bar=bar,
                     ms=ms, plain_ms=plain_ms, library_ms=None,
                     **bound(nbytes(x, qt.data, qt.scales, qt.zeros, got), 2 * M * qt.K * qt.N, str(x_dtype)[6:]))
+        if route == "tiles":
+            real_route = quant_matmul.k2_route
+            quant_matmul.k2_route = lambda *a: "simt"
+            try:
+                simt_rel = rel_err(woq_int8_cuda(x, qt, x_dtype), want)
+                case["simt_ms"] = events_ms(lambda: woq_int8_cuda(x, qt, x_dtype), iters)
+            finally:
+                quant_matmul.k2_route = real_route
+            check(simt_rel <= bar, f"K2 {label} M={M} SIMT tiles rel {simt_rel} > {bar}")
         print("K2 " + json.dumps(case))
         check(rel <= bar and bool(torch.isfinite(got.float()).all()), f"K2 {label} M={M} rel {rel} > {bar}")
+        k2_cases.append(case)
+
+    def k2_cold_case(label, K, N):
+        """K2's GEMV at M = 1 as an int8 decode step meets its products: 8
+        copies of the weight, device time by graph replay (`cold_ms`)."""
+        gen = torch.Generator(device=dev).manual_seed(K + N + 4)
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+        qts = [quantize_groupwise(w.roll(i, 0), "int8", "sym", 128) for i in range(8)]
+        del w
+        x = torch.randn(1, K, generator=gen, device=dev).to(bf16)
+        got = woq_int8_cuda(x, qts[0], bf16)
+        want = woq_matmul_plain(x, qts[0], bf16)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        case = dict(label=f"{label} L2-cold", M=1, K=K, N=N, g=128, scheme="sym", dtype="bfloat16",
+                    route=quant_matmul.k2_route(x, 1, 128), rel_err=rel,
+                    max_abs_err=float((got.float() - want.float()).abs().max()), bar=2e-3, plain_ms=None,
+                    library_ms=None, **bound(nbytes(x, qts[0].data, qts[0].scales, got), 2 * K * N, "bfloat16"))
+        case["ms"], case["eager_ms"] = cold_ms(woq_int8_cuda, x, qts)
+        print("K2 " + json.dumps(case))
+        check(rel <= 2e-3 and bool(torch.isfinite(got.float()).all()), f"K2 {label} L2-cold rel {rel} > 2e-3")
         k2_cases.append(case)
 
     def dequant_matmul_row(name, kernel, label, qt, Ms):
@@ -538,7 +577,8 @@ def main() -> int:
             k2_case(lbl, M, qt, bf16)
         for M in (1, 64):
             k2_case(lbl, M, qt, f32)
-        dequant_matmul_row("K2", woq_int8_cuda, lbl, qt, (1, 512, 1024))
+        dequant_matmul_row("K2", woq_int8_cuda, lbl, qt, (1, 16, 512, 1024))
+        k2_cold_case(lbl, K, N)
         w = torch.randn(K, N, generator=torch.Generator(device=dev).manual_seed(K + N + 3), device=dev) * 0.02
         q4 = quantize_groupwise(w, "int4", "sym", 128)
         del w
@@ -557,9 +597,12 @@ def main() -> int:
 
     def k5_case(B, N, D, size):
         gen = torch.Generator(device=dev).manual_seed(B + size)
-        q = torch.nn.functional.normalize(torch.randn(B, D, generator=gen, device=dev), dim=1)
-        d = torch.nn.functional.normalize(torch.randn(N, D, generator=gen, device=dev), dim=1)
+        # bf16 rows, as the index's shadow holds them: the times are the kernels' alone
+        q = torch.nn.functional.normalize(torch.randn(B, D, generator=gen, device=dev), dim=1).to(bf16)
+        d = torch.nn.functional.normalize(torch.randn(N, D, generator=gen, device=dev), dim=1).to(bf16)
+        tiles0 = scan_top2_cuda.tile_launches
         kv, ki = scan_top2_cuda(q, d, size)
+        check(scan_top2_cuda.tile_launches == tiles0 + 1, "K5 took the tensor cores")
         pv, pi = scan_top2_plain(q, d, size)
         torch.cuda.synchronize()
         finite = torch.isfinite(pv)
@@ -576,10 +619,24 @@ def main() -> int:
         check(id_gap <= 1e-4, f"K5 ids differ off a tie: {id_gap}")
         ms = events_ms(lambda: scan_top2_cuda(q, d, size), 5, warmup=1)
         plain_ms = events_ms(lambda: scan_top2_plain(q, d, size), 5, warmup=1)
-        # the first `size` docs are scored, in bf16 (the wrapper's cast)
-        case = dict(B=B, N=N, D=D, size=size, max_abs_err=mabs, ids_differing=int(rows.numel()),
-                    max_score_gap_where_ids_differ=id_gap, ms=ms, plain_ms=plain_ms,
-                    **bound(nbytes(q, d[:size], kv, ki), 2 * B * size * D, "bfloat16"))
+        real_route = scan_topk.k5_route
+        scan_topk.k5_route = lambda *a: "simt"
+        try:
+            sv, _ = scan_top2_cuda(q, d, size)
+            simt_gap = float((sv[finite] - pv[finite]).abs().max())
+            simt_ms = events_ms(lambda: scan_top2_cuda(q, d, size), 5, warmup=1)
+        finally:
+            scan_topk.k5_route = real_route
+        check(simt_gap <= 1e-4, f"K5's SIMT scores differ by {simt_gap}")
+        # the (B, size) score matrix alone by one cuBLAS call: not K5's whole
+        # function (no masking, no top-2), so not its library_ms
+        scores_ms = events_ms(lambda: torch.matmul(q, d[:size].T), 5, warmup=1)
+        # the first `size` docs are scored
+        case = dict(B=B, N=N, D=D, size=size, route="tensor_cores", max_abs_err=mabs,
+                    ids_differing=int(rows.numel()), max_score_gap_where_ids_differ=id_gap, ms=ms,
+                    plain_ms=plain_ms, simt_ms=simt_ms, scores_matmul_ms=scores_ms,
+                    scores_matmul="torch.matmul of the bf16 (B, size) scores alone, not the whole function",
+                    library_ms=None, **bound(nbytes(q, d[:size], kv, ki), 2 * B * size * D, "bfloat16"))
         print("K5 " + json.dumps(case))
         k5_cases.append(case)
 
@@ -719,7 +776,9 @@ def main() -> int:
                 "woq_w32": woq_w32_cuda, "flash_attention": flash_attention_cuda,
                 "ivf_scan_topk": ivf_scan_topk_cuda, "ivf_scan_candidates": ivf_scan_candidates_cuda}
 
-    tiled = {"woq_int4": woq_int4_cuda, "woq_w32": woq_w32_cuda}  # they count their tensor-core tiles too
+    # they count their launches on the tensor cores too
+    tiled = {"woq_int4": woq_int4_cuda, "woq_int8": woq_int8_cuda, "scan_top2": scan_top2_cuda,
+             "woq_w32": woq_w32_cuda}
     tile_launches = {k: 0 for k in tiled}
 
     def zero_counts():
@@ -822,10 +881,10 @@ def main() -> int:
     torch.cuda.synchronize()
     add_s = time.perf_counter() - t0
     oracle = exact_topk(docs, queries, K)
-    k5_before = scan_top2_cuda.launches
+    k5_before = scan_top2_cuda.tile_launches
     _, ids = index.search(queries, k=K, method="approx_rescore", oversample=OVER)
     recall = recall_at_k(ids, oracle)
-    check(scan_top2_cuda.launches > k5_before, "B = 256 search ran K5")
+    check(scan_top2_cuda.tile_launches > k5_before, "B = 256 search ran K5 on the tensor cores")
     k1_before = woq_int4_cuda.launches
     _, ids16 = index.search(queries[:16], k=K, method="approx_rescore", oversample=OVER)
     recall16 = recall_at_k(ids16, oracle[:16])
@@ -845,6 +904,7 @@ def main() -> int:
     rag_counts = add_counts("phases 3-4")
     check(rag_counts["woq_int4"] > 0 and rag_counts["scan_top2"] > 0, "K1 and K5 ran in phases 3-4")
     check(rag_counts["woq_int4_tiles"] > 0, "K1's tensor-core tiles ran in phases 3-4 (the B = 16 search)")
+    check(rag_counts["scan_top2_tiles"] == rag_counts["scan_top2"], "every K5 launch of phases 3-4 took the tensor cores")
 
     # the reranker's scores on the card against the plain path on the CPU
     query, hits, out = reranked[0]
@@ -1185,8 +1245,11 @@ def main() -> int:
           "K2, not K1 or K3, ran inside every chat request")
     # K1 runs in phase 8 only inside retrieval (the agent's int4 encoder,
     # reranker and index), never in the int8 model's generation
-    print(f"phase 8: K1 launches {c8['woq_int4']}, all in retrieval; K2 launches {c8['woq_int8']}")
+    print(f"phase 8: K1 launches {c8['woq_int4']}, all in retrieval; K2 launches {c8['woq_int8']}, "
+          f"{c8['woq_int8_tiles']} of them on the tensor-core tiles")
     check(c8["woq_int8"] > 0 and c8["woq_w32"] == 0, "K2, not K3, ran in phase 8")
+    check(c8["woq_int8_tiles"] >= 7 * lcfg.num_hidden_layers * (1 + len(plan)),
+          "K2's tensor-core tiles ran every int8 product of each prefill")
     if recs_int8[0]["ids"] == probe:  # the same prompt: greedy tokens until the chat's EOS, if any
         chat_tokens = recs_int8[0]["tokens"]
         check(chat_tokens == api_tokens[:len(chat_tokens)], "the chat's first greedy request repeats generate_stream")
@@ -1245,6 +1308,9 @@ def main() -> int:
     k1_decode = next(c for c in k1_cases if c["label"] == "llama gate/up L2-cold")
     k5_full = k5_cases[0]
     k2_decode = next(c for c in k2_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
+    k2_cold = next(c for c in k2_cases if c["label"] == "gate/up L2-cold")
+    k2_tiles = next(c for c in k2_cases if c["label"] == "gate/up" and c["M"] == 512 and c["dtype"] == "bfloat16")
+    k2_dm = next(r for r in dequant_rows if r["kernel"] == "K2" and r["label"] == "gate/up")
     k3_decode = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 1 and c["dtype"] == "bfloat16")
     k3_tiles = next(c for c in k3_cases if c["label"] == "gate/up" and c["M"] == 2048 and c["dtype"] == "bfloat16")
     k1_tiles = next(c for c in k1_cases if c["label"] == "llama qkvo" and c["M"] == 512)
@@ -1266,8 +1332,14 @@ def main() -> int:
          "gate_up_decode": {key: k1_decode[key] for key in ("M", "K", "N", "ms", "eager_ms", "k3_cold_ms",
                                                              "bound_ms", "bound_by", "library_ms")},
          "qkvo_tiles": {key: k1_tiles[key] for key in shown}},
-        row("woq_int8", "woq_int8.cu", "quant_matmul.py:198", k2_cases, k2_decode),
-        row("scan_top2", "scan_top2.cu", "scan_topk.py:39", k5_cases, k5_full),
+        {**row("woq_int8", "woq_int8.cu", "quant_matmul.py:198", k2_cases, k2_decode),
+         "tile_launches": tile_launches["woq_int8"],
+         "gate_up_decode": {key: k2_cold[key] for key in ("M", "K", "N", "ms", "eager_ms", "bound_ms", "bound_by")},
+         "gate_up_tiles": {**{key: k2_tiles[key] for key in shown + ("simt_ms",)},
+                           "dequant_matmul_ms": k2_dm["dequant_matmul_ms_M512"]}},
+        {**row("scan_top2", "scan_top2.cu", "scan_topk.py:39", k5_cases, k5_full),
+         "tile_launches": tile_launches["scan_top2"], "simt_ms": k5_full["simt_ms"],
+         "scores_matmul_ms": k5_full["scores_matmul_ms"]},
         {**row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),
          "tile_launches": tile_launches["woq_w32"],
          "gate_up_tiles": {key: k3_tiles[key] for key in shown}},

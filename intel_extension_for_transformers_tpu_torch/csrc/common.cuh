@@ -81,4 +81,76 @@ __device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t 
 constexpr uint32_t kBf16x2One = 0x3F803F80u;
 constexpr uint32_t kBf16x2NegZero = 0x80008000u;
 
+// Byte c of `word` as the f32 2^23 + byte (exact): subtract 2^23 (+ 128 for
+// a signed byte flipped in its top bit) for the integer.
+template <int C>
+__device__ __forceinline__ float byte_as_f32_2p23(uint32_t word) {
+  return __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7650 | C));
+}
+
+// The high halves of two f32 values, packed as a bf16 pair (a in the low
+// half): exact where each is an integer of at most 8 significant bits.
+__device__ __forceinline__ uint32_t hi_halves(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// Calls f(i) for i = threadIdx.x, + THREADS, ... below COUNT: a loop whose
+// trip count the compiler knows, so it unrolls.
+template <int COUNT, int THREADS, class F>
+__device__ __forceinline__ void for_each_piece(F f) {
+#pragma unroll
+  for (int j = 0; j < (COUNT + THREADS - 1) / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    if (COUNT % THREADS == 0 || i < COUNT) f(i);
+  }
+}
+
+// Stage src[r0 + r][k0 + c] (r < ROWS, c < BK) of a row-major bf16 (rows,
+// ld) array into dst, rows BK + PAD apart; zero where r0 + r >= rows or
+// k0 + c >= klimit. A stage inside the edges takes one 16-byte cp.async a
+// piece and no tests; `aligned`: src and ld allow 16-byte copies.
+template <int ROWS, int BK, int PAD, int THREADS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int rows, int ld,
+                                           int r0, int k0, int klimit, bool aligned) {
+  constexpr int CPR = BK / 8;  // 16-byte pieces a row
+  if (aligned && r0 + ROWS <= rows && k0 + BK <= klimit) {
+    const __nv_bfloat16* s0 = src + static_cast<size_t>(r0) * ld + k0;
+    for_each_piece<ROWS * CPR, THREADS>([&](int i) {
+      const int r = i / CPR, c = (i % CPR) * 8;
+      cp_async16(dst + r * (BK + PAD) + c, s0 + static_cast<size_t>(r) * ld + c, true);
+    });
+    return;
+  }
+  for_each_piece<ROWS * CPR, THREADS>([&](int i) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const int m = r0 + r, k = k0 + c;
+    __nv_bfloat16* d = dst + r * (BK + PAD) + c;
+    if (m >= rows || k >= klimit) {
+      cp_async16(d, src, false);
+    } else {
+      const __nv_bfloat16* s = src + static_cast<size_t>(m) * ld + k;
+      if (aligned && k + 8 <= klimit) {
+        cp_async16(d, s, true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] = k + e < klimit ? s[e] : __float2bfloat16(0.f);
+      }
+    }
+  });
+}
+
+// Split K without float atomics: after a block has written its f32 partials,
+// it counts itself in at `counter`; true in every thread of the block that
+// arrives last of `splits`, which then sums the partials in split order,
+// writes out and sets the counter back to 0. `flag` is a __shared__ int.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int splits, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
 }  // namespace itx

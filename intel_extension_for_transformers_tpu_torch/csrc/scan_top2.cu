@@ -11,17 +11,28 @@
 // out in tile-major order: tile0-top1, tile0-top2, tile1-top1, ...
 //
 // Bound on the H100: at B = 4096 the scan is 2*B*N*D flops against 2*N*D
-// bytes of docs, so it is compute-bound; writing the (B, N) score matrix
-// would add 4*B*N bytes of traffic, which is what this kernel exists to avoid.
-// Design: a block owns 64 queries x one doc tile. It walks the tile in
-// 64-doc sub-tiles, staging 32-dim slices of queries and docs in shared
-// memory as f32 (a bf16 product is exact in f32), with a 4x4 register tile
-// of scores per thread (SIMT FMA). After each sub-tile every thread folds its
-// 16 scores into a running top-2 per query held in registers; at the end the
-// 16 threads that share a query merge their lists with warp shuffles. No
-// score leaves the SM. Blocks that share a doc tile are adjacent in the grid,
-// so the tile is read from L2 rather than device memory by all but the first.
-// Tensor cores (mma/wgmma) are later work.
+// bytes of docs, so it is compute-bound (989 TFLOP/s in bf16 on the tensor
+// cores); writing the (B, N) score matrix would add 4*B*N bytes of traffic,
+// which is what this kernel exists to avoid.
+// Design (scan_top2_tc, rows of 16-byte-aligned bf16 with D % 8 == 0; the
+// wrapper's k5_route): a block of 8 warps owns 64 queries x one doc tile. It
+// walks the tile's docs below `size` in sub-tiles of 128, each over D in
+// stages of 64 dims: queries (64 x 64) and docs (128 x 64), both K-contiguous,
+// arrive by 16-byte cp.async into a 3-stage ring that runs on across
+// sub-tiles. A fragments come from the query stage and B fragments from the
+// doc stage by ldmatrix (docs rows are the .col operand as they stand), into
+// mma.sync m16n8k16 bf16 -> f32; a warp owns 32 queries x 32 docs. After a
+// sub-tile each thread folds its accumulators (4 query rows, 8 docs each)
+// into a running top-2 a row in registers. At the tile's end the four
+// lanes of a quad merge by shuffles and the four warps that share a row
+// through shared memory. No score leaves the SM. Blocks that share a doc tile
+// are adjacent in the grid, so the tile is read from L2 rather than device
+// memory by all but the first.
+// Otherwise (scan_top2_kernel): SIMT, a block of 64 queries x one doc tile
+// in 64-doc sub-tiles, 32-dim slices staged as f32 (a bf16 product is exact
+// in f32), a 4x4 register tile of scores per thread, the 16 threads that
+// share a query merging by warp shuffles.
+// Later work: wgmma with TMA-fed stages.
 
 #include <math.h>
 #include <stdint.h>
@@ -42,14 +53,16 @@ __device__ __forceinline__ bool better(float v, int i, float w, int j) {
   return v > w || (v == w && i > j);
 }
 
+// (v, i) into a running top-2 (v1, i1) >= (v2, i2) of one row
 __device__ __forceinline__ void insert(float v, int i, float& v1, int& i1, float& v2,
                                        int& i2) {
+  if (!better(v, i, v2, i2)) return;  // the common case once a list fills
   if (better(v, i, v1, i1)) {
     v2 = v1;
     i2 = i1;
     v1 = v;
     i1 = i;
-  } else if (better(v, i, v2, i2)) {
+  } else {
     v2 = v;
     i2 = i;
   }
@@ -148,16 +161,193 @@ scan_top2_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
+// ---- tensor cores (mma.sync) ---------------------------------------------
+namespace tc {
+
+constexpr int kThreads = 256;         // 8 warps: 2 along queries x 4 along docs
+constexpr int kBD = 128;              // docs a sub-tile
+// 64 queries a block (two blocks an SM), 64 dims a stage in a ring of 3: on
+// the H100 faster than 32 dims in a ring of 4 (half the barriers a
+// sub-tile) and as fast as 128 queries (PERF.md)
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kRow = kBK + 8;         // bf16 a staged row (padded: ldmatrix without bank conflicts)
+constexpr int kStages = 3;
+constexpr int kWM = kBQ / 2;          // queries a warp (32)
+constexpr int kWN = kBD / 4;          // docs a warp (32)
+constexpr int kMT = kWM / 16;         // m16 fragments a warp
+constexpr int kNT = kWN / 8;          // n8 fragments a warp
+constexpr int kStageBytes = (kBQ + kBD) * kRow * 2;  // a stage of the ring: kBQ query rows, then kBD doc rows
+constexpr int kSmemBytes = kStages * kStageBytes;
+static_assert(4 * kBQ * 16 <= kSmemBytes, "the cross-warp merge fits in the ring");
+
+__global__ void __launch_bounds__(kThreads, 2)
+scan_top2_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ docs,
+             float* __restrict__ vals, int* __restrict__ ids, int B, int N, int D, int size, int n_tile) {
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wq = warp / 4, wd = warp % 4;  // this warp's query half and doc quarter
+  const int b0 = blockIdx.x * kBQ;
+  const int t = blockIdx.y;
+  const int T = gridDim.y;
+  const int tile_start = t * n_tile;
+  const int valid_end = min(min(tile_start + n_tile, N), size);  // docs at or past it are never scored
+  const int ksteps = (D + kBK - 1) / kBK;
+  const int subs = valid_end > tile_start ? (valid_end - tile_start + kBD - 1) / kBD : 0;
+  const int steps = subs * ksteps;
+
+  auto load = [&](int s) {
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + (s % kStages) * kStageBytes);
+    const int k0 = (s % ksteps) * kBK;
+    itx::stage_rows<kBQ, kBK, kRow - kBK, kThreads>(qs, q, B, D, b0, k0, D, true);
+    itx::stage_rows<kBD, kBK, kRow - kBK, kThreads>(qs + kBQ * kRow, docs, valid_end, D,
+                                                     tile_start + (s / ksteps) * kBD, k0, D, true);
+  };
+
+  // running top-2 of this thread's rows wq*kWM + 16 mi + lane/4 + 8 h
+  float v1[kMT][2], v2[kMT][2];
+  int i1[kMT][2], i2[kMT][2];
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v1[mi][h] = v2[mi][h] = -INFINITY;
+      i1[mi][h] = i2[mi][h] = -1;
+    }
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s);
+    itx::cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    itx::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s has landed; stage s - 1 is consumed by every warp
+    if (s + kStages - 1 < steps) load(s + kStages - 1);
+    itx::cp_async_commit();
+    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(smem + (s % kStages) * kStageBytes);
+    const __nv_bfloat16* ds = qs + kBQ * kRow;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t a[kMT][4];
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+        itx::ldsm_x4(qs + (wq * kWM + 16 * mi + lane % 16) * kRow + 16 * ks + (lane / 16) * 8, a[mi]);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        // matrices: docs 16 np.. (k 16 ks.., 16 ks + 8..), docs 16 np + 8.. (the same)
+        uint32_t b[4];
+        itx::ldsm_x4(ds + (wd * kWN + 16 * np + (lane & 7) + ((lane >> 4) << 3)) * kRow + 16 * ks +
+                         ((lane >> 3) & 1) * 8,
+                     b);
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+          itx::mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          itx::mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (s % ksteps == ksteps - 1) {  // the sub-tile is scored: fold it into the running top-2
+      const int c0 = tile_start + (s / ksteps) * kBD + wd * kWN + 2 * (lane % 4);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * ni + (e & 1);
+            const int h = e >> 1;
+            if (col < valid_end) insert(acc[mi][ni][e], col, v1[mi][h], i1[mi][h], v2[mi][h], i2[mi][h]);
+            acc[mi][ni][e] = 0.f;
+          }
+    }
+  }
+
+  // merge the four lanes of a quad (the same rows, other columns)
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov1 = __shfl_xor_sync(0xffffffffu, v1[mi][h], off);
+        const int oi1 = __shfl_xor_sync(0xffffffffu, i1[mi][h], off);
+        const float ov2 = __shfl_xor_sync(0xffffffffu, v2[mi][h], off);
+        const int oi2 = __shfl_xor_sync(0xffffffffu, i2[mi][h], off);
+        insert(ov1, oi1, v1[mi][h], i1[mi][h], v2[mi][h], i2[mi][h]);
+        insert(ov2, oi2, v1[mi][h], i1[mi][h], v2[mi][h], i2[mi][h]);
+      }
+
+  // then the four warps that share a row, through shared memory (the ring is done)
+  itx::cp_async_wait<0>();
+  __syncthreads();
+  float4* red = reinterpret_cast<float4*>(smem);  // [4][kBQ]: v1, i1, v2, i2 (ids as bits)
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        red[wd * kBQ + wq * kWM + 16 * mi + lane / 4 + 8 * h] =
+            make_float4(v1[mi][h], __int_as_float(i1[mi][h]), v2[mi][h], __int_as_float(i2[mi][h]));
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
+    const int b = b0 + r;
+    if (b >= B) continue;
+    float w1 = -INFINITY, w2 = -INFINITY;
+    int j1 = -1, j2 = -1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 o = red[k * kBQ + r];
+      insert(o.x, __float_as_int(o.y), w1, j1, w2, j2);
+      insert(o.z, __float_as_int(o.w), w1, j1, w2, j2);
+    }
+    const size_t o = static_cast<size_t>(b) * 2 * T + 2 * t;
+    vals[o] = w1;
+    vals[o + 1] = w2;
+    ids[o] = j1;
+    ids[o + 1] = j2;
+  }
+}
+
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* docs, float* vals, int* ids, int B, int N, int D,
+                   int size, int n_tile, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(scan_top2_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + kBQ - 1) / kBQ, (N + n_tile - 1) / n_tile);
+  scan_top2_tc<<<grid, kThreads, kSmemBytes, stream>>>(q, docs, vals, ids, B, N, D, size, n_tile);
+  return cudaSuccess;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q: bf16 (B, D); docs: bf16 (N, D); vals: f32 (B, 2T); ids: int32 (B, 2T)
-// with T = ceil(N / n_tile). Returns cudaGetLastError() after the launch.
-extern "C" int itx_scan_top2(const void* q, const void* docs, void* vals, void* ids, int B,
-                             int N, int D, int size, int n_tile, void* stream) {
+// with T = ceil(N / n_tile). route 1 takes the tensor cores (16-byte-aligned
+// q and docs, D % 8 == 0), route 0 the SIMT kernel. Returns the launch's CUDA
+// error (cudaGetLastError()).
+extern "C" int itx_scan_top2(const void* q, const void* docs, void* vals, void* ids, int B, int N, int D,
+                             int size, int n_tile, int route, void* stream) {
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* dp = static_cast<const __nv_bfloat16*>(docs);
+  auto* vp = static_cast<float*>(vals);
+  auto* ip = static_cast<int*>(ids);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    const cudaError_t err = tc::launch(qp, dp, vp, ip, B, N, D, size, n_tile, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int T = (N + n_tile - 1) / n_tile;
   const dim3 grid((B + kBQ - 1) / kBQ, T);
-  scan_top2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(docs),
-      static_cast<float*>(vals), static_cast<int*>(ids), B, N, D, size, n_tile);
+  scan_top2_kernel<<<grid, kThreads, 0, s>>>(qp, dp, vp, ip, B, N, D, size, n_tile);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,7 @@
 // Design:
 //  * M <= K1_GEMV_MAX_M (ops/quant_matmul.py: 1, since the tiles below are
 //    faster from M = 2 on the H100; the kernel takes up to 8 rows), a
-//    split-K GEMV (woq_int4_gemv): a block owns 128 columns. Each
+//    split-K GEMV (woq_int4_gemv, on woq_gemv.cuh): a block owns 128 columns. Each
 //    lane reads adjacent columns of a packed row as one word, 16 bytes
 //    (8 lanes a row, 4 rows a warp) where N and the pointers allow, else 4
 //    bytes (32 lanes a row), else byte by byte; a warp reads whole 128-byte
@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "woq_gemv.cuh"
 #include "woq_tc.cuh"
 
 namespace {
@@ -98,55 +99,12 @@ __device__ __forceinline__ float dequant(int u, float s, float z, const float* c
   return kBF16 ? itx::round_bf16(w) : w;
 }
 
-// ---- M <= 8: split-K GEMV over 128-column strips --------------------------
-constexpr int kGemvCols = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;  // weight words in flight per lane
-
-// CPL columns a lane: 16 (one 16-byte word, 8 lanes a packed row) or 4 (one
-// 4-byte word, 32 lanes a row); kVec false reads the CPL bytes one by one.
-template <int CPL>
-struct GemvShape {
-  static constexpr int LPR = kGemvCols / CPL;  // lanes a packed row
-  static constexpr int RPW = 32 / LPR;         // packed rows a warp reads at once
-  static constexpr int RPB = kWarps * RPW;     // packed rows the block reads at once
-};
-
-template <int CPL, bool kVec>
-__device__ __forceinline__ void load_words(const int8_t* w, size_t row, int n, int N,
-                                           uint32_t word[CPL / 4]) {
-  const int8_t* p = w + row * N + n;
-  if constexpr (kVec && CPL == 16) {
-    const uint4 t = n < N ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
-    word[0] = t.x; word[1] = t.y; word[2] = t.z; word[3] = t.w;
-  } else if constexpr (kVec) {
-    word[0] = n < N ? __ldg(reinterpret_cast<const uint32_t*>(p)) : 0u;
-  } else {
-#pragma unroll
-    for (int i = 0; i < CPL / 4; ++i) {
-      word[i] = 0u;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (n + 4 * i + c < N) word[i] |= static_cast<uint32_t>(static_cast<uint8_t>(p[4 * i + c])) << (8 * c);
-    }
-  }
-}
-
-// CPL adjacent f32 values of row `row` of a (rows, N) array, 16-byte loads when kVec.
-template <int CPL, bool kVec>
-__device__ __forceinline__ void load_row(const float* a, size_t row, int n, int N, float v[CPL]) {
-  const float* p = a + row * N + n;
-#pragma unroll
-  for (int i = 0; i < CPL / 4; ++i) {
-    if constexpr (kVec) {
-      const float4 t = n < N ? __ldg(reinterpret_cast<const float4*>(p) + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) v[4 * i + c] = n + 4 * i + c < N ? p[4 * i + c] : 0.f;
-    }
-  }
-}
+// ---- M <= 8: split-K GEMV over 128-column strips (woq_gemv.cuh) ---------
+constexpr int kGemvCols = itx_gemv::kCols;
+constexpr int kWarps = itx_gemv::kWarps;
+constexpr int kUnroll = itx_gemv::kUnroll;
+using itx_gemv::load_row;
+using itx_gemv::load_words;
 
 // dequant() with s, z (and cb) already rounded to the compute type.
 template <bool kBF16>
@@ -175,7 +133,7 @@ woq_int4_gemv(const TX* __restrict__ x, const int8_t* __restrict__ w,
               const float* __restrict__ codebook, TO* __restrict__ out, float* __restrict__ part,
               int* __restrict__ counters, int M, int N, int K, int group_size, int scheme,
               int k_chunk) {
-  using Sh = GemvShape<CPL>;
+  using Sh = itx_gemv::Shape<CPL>;
   constexpr bool kBF16 = sizeof(TX) == 2;
   constexpr int NW = CPL / 4;  // 32-bit words a lane reads from a packed row
   __shared__ float red[kWarps][TM][kGemvCols];
@@ -302,53 +260,7 @@ woq_int4_gemv(const TX* __restrict__ x, const int8_t* __restrict__ w,
     }
   }
 
-  // lanes of one warp that share columns (RPW > 1) sum by shuffles, then
-  // the warps through shared memory, each in a fixed order
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      float v = acc[m][c];
-#pragma unroll
-      for (int off = Sh::LPR; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (sub == 0) red[warp][m][c0 + c] = v;
-    }
-  __syncthreads();
-  const bool direct = gridDim.y == 1;
-  const size_t MN = static_cast<size_t>(M) * N;
-  for (int t = threadIdx.x; t < TM * kGemvCols; t += kThreads) {
-    const int m = t / kGemvCols, c = t % kGemvCols;
-    const int col = blockIdx.x * kGemvCols + c;
-    if (m >= M || col >= N) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kWarps; ++wp) sum += red[wp][m][c];
-    const size_t o = static_cast<size_t>(m) * N + col;
-    if (direct) {
-      out[o] = itx::from_float<TO>(sum);
-    } else {
-      part[blockIdx.y * MN + o] = sum;
-    }
-  }
-  if (direct) return;
-
-  // the last block of this column strip to arrive sums the partials
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(&counters[blockIdx.x], 1) == static_cast<int>(gridDim.y) - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int t = threadIdx.x; t < TM * kGemvCols; t += kThreads) {
-    const int m = t / kGemvCols, c = t % kGemvCols;
-    const int col = blockIdx.x * kGemvCols + c;
-    if (m >= M || col >= N) continue;
-    const size_t o = static_cast<size_t>(m) * N + col;
-    float sum = 0.f;
-    for (unsigned s = 0; s < gridDim.y; ++s) sum += __ldcg(part + s * MN + o);
-    out[o] = itx::from_float<TO>(sum);
-  }
-  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+  itx_gemv::finish<TM, CPL>(acc, red, &is_last, out, part, counters, M, N);
 }
 
 // ---- 9 <= M < 1024: tiled SIMT GEMM ---------------------------------------
@@ -465,68 +377,29 @@ __device__ __forceinline__ uint32_t tc_decode(uint32_t v, int scheme, uint32_t s
   return itx::bf16x2_fma(q, s2, itx::kBf16x2NegZero);                // bf16(q * s)
 }
 
-// B-fragment policy over the khalf bytes: a stage is packed rows r0..r0+31
-// (rows past K/2 arrive as zeros). Slice 0 is the low plane (K rows r0..),
-// slice 1 the high plane (K rows K/2 + r0..), both in group r0 / g of their
-// half. begin_stage decodes the whole stage into a bf16 tile bs[plane][row]
-// [column] (each thread 4 columns of DCOLS packed rows, both planes); k-step
-// ks of a slice reads its B fragments from rows 16 ks.. of the slice's plane
-// by ldmatrix.trans.
+// B-fragment policy over the khalf bytes (woq_tc.cuh's ByteRowsTile): a
+// stage is packed rows r0..r0+31 (rows past K/2 arrive as zeros). Slice 0 is
+// the low plane (K rows r0..), slice 1 the high plane (K rows K/2 + r0..),
+// both in group r0 / g of their half. begin_stage decodes the whole stage
+// into the bf16 tile, both planes; k-step ks of a slice reads its B
+// fragments from rows 16 ks.. of the slice's plane.
 template <int BM>
-struct Int4Tile {
-  using S = itx_tc::Shape<BM>;
-  static constexpr int BK = 32, SLICES = 2;
-  static constexpr int PROW = itx_tc::kBN + 16;  // bytes a staged packed row (padded)
-  static constexpr int W_BYTES = BK * PROW;
-  static constexpr int BROW = itx_tc::kBN + 8;   // bf16 a decoded row (padded: ldmatrix without bank conflicts)
-  static constexpr int EXTRA_BYTES = 32 + 2 * BK * BROW * 2;
-  static constexpr int DCOLS = BK * (itx_tc::kBN / 4) / S::THREADS;  // 4-byte words a thread decodes
+struct Int4Tile : itx_tc::ByteRowsTile<BM, 2> {
+  using Base = itx_tc::ByteRowsTile<BM, 2>;
+  static constexpr int EXTRA_BYTES = 32 + Base::TILE_BYTES;
 
-  uint16_t* cbs;      // the bf16 codebook (16 entries)
-  __nv_bfloat16* bs;  // [2][BK][BROW], the decoded stage
-  int scheme, wn, lane;
+  uint16_t* cbs;  // the bf16 codebook (16 entries)
+  int scheme;
   uint32_t sp[2][2], nzp[2][2];  // s and -z of columns (4c, 4c + 1) and (4c + 2, 4c + 3), each plane
-  uint32_t tw[S::NT][2];         // B fragments of the current k-step (two n8 fragments an ldmatrix)
 
   __device__ Int4Tile(const itx_tc::Params& p, unsigned char* extra, int, int wn_, int lane_)
-      : cbs(reinterpret_cast<uint16_t*>(extra)),
-        bs(reinterpret_cast<__nv_bfloat16*>(extra + 32)),
-        scheme(p.scheme), wn(wn_), lane(lane_) {
+      : Base(extra + 32, wn_, lane_), cbs(reinterpret_cast<uint16_t*>(extra)), scheme(p.scheme) {
     if (threadIdx.x < 16)
       cbs[threadIdx.x] = p.scheme == kCodebook ? __bfloat16_as_ushort(__float2bfloat16(p.codebook[threadIdx.x])) : 0;
   }
 
   __device__ static int x_col(const itx_tc::Params& p, int sl, int r0) { return sl ? p.K / 2 + r0 : r0; }
   __device__ static int x_limit(const itx_tc::Params& p, int sl) { return sl ? p.K : p.K / 2; }
-
-  __device__ static void load_w(unsigned char* ws, const itx_tc::Params& p, int r0, int n0) {
-    const auto* w = static_cast<const uint8_t*>(p.w);
-    constexpr int CPR = itx_tc::kBN / 16;  // 16-byte pieces a row
-    if (p.w_aligned && n0 + itx_tc::kBN <= p.N && r0 + BK <= p.span) {
-      const uint8_t* src = w + static_cast<size_t>(r0) * p.N + n0;
-      itx_tc::for_each_piece<BK * CPR, S::THREADS>([&](int i) {
-        const int r = i / CPR, c = (i % CPR) * 16;
-        itx::cp_async16(ws + r * PROW + c, src + static_cast<size_t>(r) * p.N + c, true);
-      });
-      return;
-    }
-    itx_tc::for_each_piece<BK * CPR, S::THREADS>([&](int i) {
-      const int r = r0 + i / CPR, c = (i % CPR) * 16;
-      const int n = n0 + c;
-      unsigned char* d = ws + (i / CPR) * PROW + c;
-      if (r >= p.span || n >= p.N) {
-        itx::cp_async16(d, w, false);
-      } else {
-        const uint8_t* src = w + static_cast<size_t>(r) * p.N + n;
-        if (p.w_aligned && n + 16 <= p.N) {
-          itx::cp_async16(d, src, true);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 16; ++e) d[e] = n + e < p.N ? src[e] : 0;
-        }
-      }
-    });
-  }
 
   // s (and -z) of column n, group row g of the (K/g, N) arrays, rounded to bf16
   __device__ static void group_scale(const itx_tc::Params& p, size_t row, int n, uint16_t& s, uint16_t& nz) {
@@ -538,8 +411,7 @@ struct Int4Tile {
   __device__ void begin_stage(const itx_tc::Params& p, const unsigned char* ws, int r0) {
     const int g = p.group_size;
     const size_t glo = static_cast<size_t>(r0 / g), ghi = glo + static_cast<size_t>(p.span / g);
-    const int c = threadIdx.x % 32;  // this thread's word column: columns 4c..4c+3
-    const int n = blockIdx.x * itx_tc::kBN + 4 * c;
+    const int n = blockIdx.x * itx_tc::kBN + 4 * Base::wcol();  // this thread's columns n..n+3
     if (r0 % g == 0) {  // a new group: its scales (and zero points) for this thread's columns
 #pragma unroll
       for (int pl = 0; pl < 2; ++pl)
@@ -553,52 +425,19 @@ struct Int4Tile {
         }
     }
 #pragma unroll
-    for (int i = 0; i < DCOLS; ++i) {
-      const int r = threadIdx.x / 32 + (S::THREADS / 32) * i;
-      const uint32_t word = *reinterpret_cast<const uint32_t*>(ws + r * PROW + 4 * c);
+    for (int i = 0; i < Base::DWORDS; ++i) {
+      const int r = Base::drow(i);
+      const uint32_t word = Base::staged_word(ws, r);
 #pragma unroll
       for (int pl = 0; pl < 2; ++pl) {
         const uint32_t nib = (pl ? word >> 4 : word) & 0x0F0F0F0Fu;
         uint2 o;
         o.x = tc_decode(__byte_perm(nib, 0u, 0x4140), scheme, sp[pl][0], nzp[pl][0], cbs);  // columns 4c, 4c + 1
         o.y = tc_decode(__byte_perm(nib, 0u, 0x4342), scheme, sp[pl][1], nzp[pl][1], cbs);  // 4c + 2, 4c + 3
-        *reinterpret_cast<uint2*>(bs + (pl * BK + r) * BROW + 4 * c) = o;
+        this->put(pl, r, o);
       }
     }
     __syncthreads();  // the decoded stage is complete
-  }
-
-  __device__ void a_hook(const uint32_t (&)[S::MT][4]) {}
-
-  __device__ void b_frag(const unsigned char*, int sl, int ks, int ni, uint32_t& b0, uint32_t& b1) {
-    // one ldmatrix.x4.trans gives fragments ni and ni + 1: matrix q of lane
-    // i is k rows 16 ks + 8 (q & 1).., columns 8 (q >> 1)..
-    if (ni % 2 == 0) {
-      const int q = lane / 8;
-      const __nv_bfloat16* src = bs + (sl * BK + 16 * ks + 8 * (q & 1) + lane % 8) * BROW + wn + 8 * ni +
-                                 8 * (q >> 1);
-      uint32_t r[4];
-      itx::ldsm_x4_trans(src, r);
-      tw[ni][0] = r[0];
-      tw[ni][1] = r[1];
-      tw[ni + 1][0] = r[2];
-      tw[ni + 1][1] = r[3];
-    }
-    b0 = tw[ni][0];
-    b1 = tw[ni][1];
-  }
-
-  __device__ void end_stage(const itx_tc::Params&, float (&acc)[S::MT][S::NT][4],
-                            float (&part)[S::MT][S::NT][4], int) {
-#pragma unroll
-    for (int mi = 0; mi < S::MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < S::NT; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[mi][ni][e] += part[mi][ni][e];
-          part[mi][ni][e] = 0.f;
-        }
   }
 };
 

@@ -1,5 +1,5 @@
-// One tensor-core tile GEMM for the int4 WOQ kernels K1 (woq_int4.cu, khalf
-// layout) and K3 (woq_w32.cu, w32 layout), bf16 x, sm_90a.
+// One tensor-core tile GEMM for the WOQ kernels K1 (woq_int4.cu, khalf int4),
+// K2 (woq_int8.cu, int8) and K3 (woq_w32.cu, w32 int4), bf16 x, sm_90a.
 //
 //   out (M, N) = x (M, K) . dequant(W), f32 accumulators
 //
@@ -14,8 +14,9 @@
 //    the next stage's copies issued before the current stage's math; rows
 //    and columns past the edges arrive as zeros;
 //  * A fragments come from the x stage by ldmatrix; B fragments come from
-//    P::b_frag, which decodes the staged weight (in registers, or from a
-//    bf16 tile P decoded into shared memory); mma.sync m16n8k16 bf16 ->
+//    P::b_frag, which decodes the staged weight (K3 in registers; K1 and K2
+//    from a bf16 tile decoded once a stage into shared memory,
+//    ByteRowsTile); mma.sync m16n8k16 bf16 ->
 //    f32 into `part`, which P::end_stage folds into `acc` (K3's m1 branch:
 //    once a group, part * s minus sum(x_g) * s * zc);
 //  * split K: blockIdx.z takes k_chunk rows of the walk (a multiple of the
@@ -79,47 +80,13 @@ using itx::cp_async_wait;
 using itx::ldsm_x4;
 using itx::mma_bf16;
 
-// Calls f(i) for i = threadIdx.x, + THREADS, ... below COUNT: a loop whose
-// trip count the compiler knows, so it unrolls.
-template <int COUNT, int THREADS, class F>
-__device__ __forceinline__ void for_each_piece(F f) {
-#pragma unroll
-  for (int j = 0; j < (COUNT + THREADS - 1) / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    if (COUNT % THREADS == 0 || i < COUNT) f(i);
-  }
-}
+using itx::for_each_piece;
 
 // Stage x[m0 + r][k0 + c] (r < BM, c < BK) into dst, rows BK + kXPad apart;
-// zero where m >= M or k >= klimit. A stage inside the edges takes one
-// 16-byte cp.async a piece and no tests.
+// zero where m >= M or k >= klimit.
 template <int BM, int BK, int THREADS>
 __device__ __forceinline__ void load_x(__nv_bfloat16* dst, const Params& p, int m0, int k0, int klimit) {
-  constexpr int CPR = BK / 8;  // 16-byte pieces a row
-  if (p.x_aligned && m0 + BM <= p.M && k0 + BK <= klimit) {
-    const __nv_bfloat16* src = p.x + static_cast<size_t>(m0) * p.K + k0;
-    for_each_piece<BM * CPR, THREADS>([&](int i) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      cp_async16(dst + r * (BK + kXPad) + c, src + static_cast<size_t>(r) * p.K + c, true);
-    });
-    return;
-  }
-  for_each_piece<BM * CPR, THREADS>([&](int i) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int m = m0 + r, k = k0 + c;
-    __nv_bfloat16* d = dst + r * (BK + kXPad) + c;
-    if (m >= p.M || k >= klimit) {
-      cp_async16(d, p.x, false);
-    } else {
-      const __nv_bfloat16* src = p.x + static_cast<size_t>(m) * p.K + k;
-      if (p.x_aligned && k + 8 <= klimit) {
-        cp_async16(d, src, true);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) d[e] = k + e < klimit ? src[e] : __float2bfloat16(0.f);
-      }
-    }
-  });
+  itx::stage_rows<BM, BK, kXPad, THREADS>(dst, p.x, p.M, p.K, m0, k0, klimit, p.x_aligned);
 }
 
 template <class P>
@@ -226,12 +193,7 @@ __global__ void __launch_bounds__(P::S::THREADS, P::S::MIN_BLOCKS) tile_kernel(c
 
   // the last block of this output tile to arrive sums the partials in split order
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(&p.counters[tile], 1) == static_cast<int>(gridDim.z) - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  if (!itx::last_to_arrive(&p.counters[tile], gridDim.z, &is_last)) return;
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -262,6 +224,104 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   tile_kernel<P><<<grid, P::S::THREADS, bytes, stream>>>(p);
   return cudaSuccess;
 }
+
+// The part of a policy shared by weights that arrive as rows of bytes (K1's
+// khalf int4, K2's int8): a stage is BK rows of 128 bytes, one byte a column,
+// copied by 16-byte cp.async (rows past the walk or columns past N arrive as
+// zeros); the derived policy's begin_stage decodes it once a block into the
+// bf16 tile bs[plane][row][column], each thread the 4-byte words of one word
+// column (wcol(), columns 4 wcol()..+3) in rows drow(0..DWORDS-1); the warps
+// take their B fragments from bs by ldmatrix.trans.
+template <int BM, int PLANES>
+struct ByteRowsTile {
+  using S = Shape<BM>;
+  static constexpr int BK = 32, SLICES = PLANES;
+  static constexpr int PROW = kBN + 16;  // bytes a staged row (padded)
+  static constexpr int W_BYTES = BK * PROW;
+  static constexpr int BROW = kBN + 8;  // bf16 a decoded row (padded: ldmatrix without bank conflicts)
+  static constexpr int TILE_BYTES = PLANES * BK * BROW * 2;
+  static constexpr int DWORDS = BK * (kBN / 4) / S::THREADS;  // 4-byte words a thread decodes a stage
+
+  __nv_bfloat16* bs;  // [PLANES][BK][BROW], the decoded stage
+  int wn, lane;
+  uint32_t tw[S::NT][2];  // B fragments of the current k-step (two n8 fragments an ldmatrix)
+
+  __device__ ByteRowsTile(unsigned char* tile, int wn_, int lane_)
+      : bs(reinterpret_cast<__nv_bfloat16*>(tile)), wn(wn_), lane(lane_) {}
+
+  __device__ static int wcol() { return threadIdx.x % 32; }
+  __device__ static int drow(int i) { return threadIdx.x / 32 + (S::THREADS / 32) * i; }
+
+  __device__ static void load_w(unsigned char* ws, const Params& p, int r0, int n0) {
+    const auto* w = static_cast<const uint8_t*>(p.w);
+    constexpr int CPR = kBN / 16;  // 16-byte pieces a row
+    if (p.w_aligned && n0 + kBN <= p.N && r0 + BK <= p.span) {
+      const uint8_t* src = w + static_cast<size_t>(r0) * p.N + n0;
+      for_each_piece<BK * CPR, S::THREADS>([&](int i) {
+        const int r = i / CPR, c = (i % CPR) * 16;
+        cp_async16(ws + r * PROW + c, src + static_cast<size_t>(r) * p.N + c, true);
+      });
+      return;
+    }
+    for_each_piece<BK * CPR, S::THREADS>([&](int i) {
+      const int r = r0 + i / CPR, c = (i % CPR) * 16;
+      const int n = n0 + c;
+      unsigned char* d = ws + (i / CPR) * PROW + c;
+      if (r >= p.span || n >= p.N) {
+        cp_async16(d, w, false);
+      } else {
+        const uint8_t* src = w + static_cast<size_t>(r) * p.N + n;
+        if (p.w_aligned && n + 16 <= p.N) {
+          cp_async16(d, src, true);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) d[e] = n + e < p.N ? src[e] : 0;
+        }
+      }
+    });
+  }
+
+  // the 4-byte word of staged row r in this thread's word column
+  __device__ static uint32_t staged_word(const unsigned char* ws, int r) {
+    return *reinterpret_cast<const uint32_t*>(ws + r * PROW + 4 * wcol());
+  }
+  // columns 4 wcol().. of decoded row r of plane pl: o.x columns 0, 1; o.y 2, 3
+  __device__ void put(int pl, int r, uint2 o) {
+    *reinterpret_cast<uint2*>(bs + (pl * BK + r) * BROW + 4 * wcol()) = o;
+  }
+
+  __device__ void a_hook(const uint32_t (&)[S::MT][4]) {}
+
+  __device__ void b_frag(const unsigned char*, int sl, int ks, int ni, uint32_t& b0, uint32_t& b1) {
+    // one ldmatrix.x4.trans gives fragments ni and ni + 1: matrix q of lane
+    // i is k rows 16 ks + 8 (q & 1).., columns 8 (q >> 1)..
+    if (ni % 2 == 0) {
+      const int q = lane / 8;
+      const __nv_bfloat16* src = bs + (sl * BK + 16 * ks + 8 * (q & 1) + lane % 8) * BROW + wn + 8 * ni +
+                                 8 * (q >> 1);
+      uint32_t r[4];
+      itx::ldsm_x4_trans(src, r);
+      tw[ni][0] = r[0];
+      tw[ni][1] = r[1];
+      tw[ni + 1][0] = r[2];
+      tw[ni + 1][1] = r[3];
+    }
+    b0 = tw[ni][0];
+    b1 = tw[ni][1];
+  }
+
+  __device__ void end_stage(const Params&, float (&acc)[S::MT][S::NT][4], float (&part)[S::MT][S::NT][4], int) {
+#pragma unroll
+    for (int mi = 0; mi < S::MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < S::NT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mi][ni][e] += part[mi][ni][e];
+          part[mi][ni][e] = 0.f;
+        }
+  }
+};
 
 // launch<Policy<BM>> for the BM the caller planned (16, 32, 64 or 128).
 template <template <int> class Policy>

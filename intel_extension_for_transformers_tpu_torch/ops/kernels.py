@@ -34,11 +34,11 @@ _SIGNATURES = {
     # x, w, scales, zeros, codebook, out, part, counters, M, N, K,
     # group_size, scheme, route, bm, k_chunk, vec, x_bf16, out_bf16, stream
     "itx_woq_int4": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, scales, zeros, out, part, M, N, K, group_size, asym, gemv,
-    # k_chunk, vec, x_bf16, out_bf16, stream
-    "itx_woq_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, docs, vals, ids, B, N, D, size, n_tile, stream
-    "itx_scan_top2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, scales, zeros, out, part, counters, M, N, K, group_size, asym,
+    # route, bm, k_chunk, vec, x_bf16, out_bf16, stream
+    "itx_woq_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, docs, vals, ids, B, N, D, size, n_tile, route, stream
+    "itx_scan_top2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, words, scales, zeros, out, part, counters, M, N, K, Kp, group_size,
     # asym, m1, bm, k_chunk, vec, x_bf16, out_bf16, stream
     "itx_woq_w32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -9,13 +9,12 @@ Port of `intel_extension_for_transformers_tpu/ops/quant_matmul.py`:
    `_pallas_woq_w32`. For a khalf weight, at M >= 1024 rows the weight is
    dequantized once into the compute dtype and multiplied with
    `torch.matmul` (the JAX package's dequantize-once branch; M >= 1024 was
-   chosen on a TPU and has not been re-measured on the H100). Below that a
-   4-bit weight goes to K1, `csrc/woq_int4.cu` (a split-K GEMV at M = 1,
-   tiles above: on the tensor cores for bf16 x, `csrc/woq_tc.cuh`), and an
-   int8 weight to K2,
-   `csrc/woq_int8.cu`; neither writes the dequantized weight to device
-   memory. K1, K2 and K3 take every shape the packing allows, so there is
-   no fallback for unfriendly shapes.
+   chosen on a TPU). Below that a 4-bit weight goes to K1,
+   `csrc/woq_int4.cu`, and an int8 weight to K2, `csrc/woq_int8.cu`: each a
+   split-K GEMV at M = 1 (`csrc/woq_gemv.cuh`) and tiles above, on the
+   tensor cores for bf16 x (`csrc/woq_tc.cuh`); neither writes the
+   dequantized weight to device memory. K1, K2 and K3 take every shape the
+   packing allows, so there is no fallback for unfriendly shapes.
 3. `woq_linear` and the `WOQLinear` module: a linear layer over a
    `QuantizedTensor`, held as buffers.
 
@@ -90,13 +89,13 @@ def woq_matmul_plain(
 # tiles above: on the H100 the tensor-core tiles beat the GEMV from M = 2 on
 # the Llama-2-7B products by device time, the GEMV keeps M = 1 (PERF.md)
 K1_GEMV_MAX_M = 1
-_K1_GEMV_COLS = 128  # columns of one GEMV block (a strip)
+_GEMV_COLS = 128  # columns of one K1 or K2 GEMV block (a strip)
 _k1_counters: dict = {}  # (device, stream, count) → int32 arrival counters, one a strip or tile
 _TILE_BN = 128  # columns of one tensor-core tile (csrc/woq_tc.cuh)
 # K1's tensor-core tiles take at most 64 rows a tile (two blocks an SM): on
 # the H100 faster than 128 from M = 512 (PERF.md)
 K1_TILE_MAX_BM = 64
-_K1_ROUTES = {"simt": 0, "gemv": 1, "tiles": 2}
+_ROUTES = {"simt": 0, "gemv": 1, "tiles": 2}  # K1's and K2's kernels, as their C entry points number them
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,19 +106,24 @@ def target_blocks(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def int4_k_chunk(N: int, K: int, group_size: int, target: int) -> int:
-    """Packed rows of K/2 that one K1 GEMV block sums (K/2 when not split).
+def gemv_k_chunk(N: int, span: int, group_size: int, target: int) -> int:
+    """Rows of the walk that one block of the K1 or K2 GEMV sums (`span`
+    when not split): K1 walks K/2 packed rows, K2 K rows.
 
-    K/2 is split on group boundaries (a chunk of g packed rows covers one
-    low-plane and one high-plane group) until the strips of 128 columns
+    The span is split on group boundaries until the strips of 128 columns
     times the splits reach `target` blocks, or every split is one group.
     """
-    K2 = K // 2
-    want = -(-target // -(-N // _K1_GEMV_COLS))  # splits wanted
-    units = K2 // group_size
+    want = -(-target // -(-N // _GEMV_COLS))  # splits wanted
+    units = span // group_size
     if want <= 1 or units <= 1:
-        return K2
+        return span
     return max(units // want, 1) * group_size  # at least `want` splits
+
+
+def int4_k_chunk(N: int, K: int, group_size: int, target: int) -> int:
+    """`gemv_k_chunk` of K1, whose GEMV walks K/2 packed rows (a chunk of g
+    of them covers one low-plane and one high-plane group)."""
+    return gemv_k_chunk(N, K // 2, group_size, target)
 
 
 def tile_bm(M: int, max_bm: int = 128) -> int:
@@ -138,24 +142,31 @@ def tile_plan(M: int, N: int, span: int, group_size: int, target: int, max_bm: i
     are one group each. k_chunk == span: no split.
     """
     bm = tile_bm(M, max_bm)
-    tiles = -(-N // _TILE_BN) * -(-M // bm)
+    return bm, split_chunk(-(-N // _TILE_BN) * -(-M // bm), span, group_size, target)
+
+
+def split_chunk(tiles: int, span: int, unit: int, target: int) -> int:
+    """Rows of the walk that one split of `tiles` output tiles takes: `span`
+    split on `unit` boundaries, about equally, until the tiles times the
+    splits reach `target` blocks or every split is one unit (the span when
+    not split)."""
     want = -(-target // tiles)  # splits wanted
-    units = -(-span // group_size)
+    units = -(-span // unit)
     if want <= 1 or units <= 1:
-        return bm, span
+        return span
     chunk = -(-units // want)
     while chunk > 1 and -(-units // chunk) < want:
         chunk -= 1
     chunk = -(-units // -(-units // chunk))  # the same splits, as equal as they go
-    return bm, min(chunk * group_size, span)
+    return min(chunk * unit, span)
 
 
 K3_GEMV_MAX_M = 8  # K3 runs its GEMV up to this many rows (csrc/woq_w32.cu), tiles above
 
 
 def _tile_route(x2: torch.Tensor, M: int, group_size: int, gemv_max_m: int) -> bool:
-    """Whether K1 or K3 takes the tensor-core tiles: above its GEMV's rows,
-    with bf16 x and a group size that is a multiple of 32."""
+    """Whether K1, K2 or K3 takes the tensor-core tiles: above its GEMV's
+    rows, with bf16 x and a group size that is a multiple of 32."""
     return x2.dtype == torch.bfloat16 and M > gemv_max_m and group_size % 32 == 0
 
 
@@ -168,8 +179,8 @@ def k1_route(x2: torch.Tensor, M: int, group_size: int) -> str:
 
 
 def _strip_counters(dev: torch.device, stream: torch.cuda.Stream, strips: int) -> torch.Tensor:
-    """Split-K arrival counters for `strips` column strips (K1's GEMV) or
-    output tiles (K1's and K3's tensor-core tiles) on `stream`: zeroed when
+    """Split-K arrival counters for `strips` column strips (K1's and K2's
+    GEMVs) or output tiles (K1's, K2's and K3's tiles) on `stream`: zeroed when
     made, and every launch leaves them at 0. One tensor for each (device,
     stream, strips), made once and kept, so a decode step zeroes nothing,
     launches on two streams never share a counter, and a CUDA graph keeps
@@ -199,6 +210,17 @@ def _split_workspace(dev, M: int, N: int, span: int, k_chunk: int, count: int, o
 
 def _aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _gemv_vec(N: int, data: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor) -> int:
+    """The weight loads K1's and K2's GEMVs may take: 2 for 16-byte words,
+    1 for 4-byte words (scales and zero points 16-byte), 0 byte by byte."""
+    aligned = _aligned16(scales, zeros)
+    if N % 16 == 0 and _aligned16(data) and aligned:
+        return 2
+    if N % 4 == 0 and data.data_ptr() % 4 == 0 and aligned:
+        return 1
+    return 0
 
 
 def woq_int4_cuda(
@@ -243,14 +265,8 @@ def woq_int4_cuda(
     bm, route = 0, k1_route(x2, M, g)
     if route == "gemv":
         k_chunk = int4_k_chunk(N, K, g, target_blocks(dev.index))
-        count = -(-N // _K1_GEMV_COLS)
-        aligned = _aligned16(scales, zeros)
-        if N % 16 == 0 and _aligned16(data) and aligned:
-            vec = 2
-        elif N % 4 == 0 and data.data_ptr() % 4 == 0 and aligned:
-            vec = 1
-        else:
-            vec = 0
+        count = -(-N // _GEMV_COLS)
+        vec = _gemv_vec(N, data, scales, zeros)
     elif route == "simt":
         k_chunk, count, vec = K2, 0, 0
     else:
@@ -261,7 +277,7 @@ def woq_int4_cuda(
     status = load_kernels().itx_woq_int4(
         x2.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
         codebook.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
-        M, N, K, g, _SCHEME_IDS[scheme], _K1_ROUTES[route], bm, k_chunk, vec,
+        M, N, K, g, _SCHEME_IDS[scheme], _ROUTES[route], bm, k_chunk, vec,
         int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -274,32 +290,30 @@ def woq_int4_cuda(
 woq_int4_cuda.launches = 0
 woq_int4_cuda.tile_launches = 0  # the launches of the tensor-core tiles among them
 
-K2_GEMV_MAX_M = 8  # K2 runs its GEMV kernel up to this many rows, tiles above
-_K2_TILE_K = 32  # the tiled kernel's K step
+# K2 runs its split-K GEMV (which takes up to 8 rows) up to this many rows,
+# tiles above (PERF.md)
+K2_GEMV_MAX_M = 1
+# K2's tensor-core tiles take at most 64 rows a tile (two blocks an SM): on
+# the H100 faster than 128 from M = 512 (PERF.md)
+K2_TILE_MAX_BM = 64
+_K2_SIMT_BN, _K2_SIMT_K = 64, 32  # K2's SIMT tiles: columns a tile, K rows a step
 
 
-def int8_k_chunk(M: int, N: int, K: int, group_size: int, target: int) -> int:
-    """Rows of K that one K2 block sums (K itself when K is not split).
-
-    K is split until the blocks reach `target`: on group
-    boundaries for the GEMV (128 columns a block), on 32-row steps for the
-    tiles (64 columns by 16 or 64 rows). Every split holds at least one row.
-    """
+def k2_route(x2: torch.Tensor, M: int, group_size: int) -> str:
+    """K2's kernel for x2 (M, K): "gemv" (M <= K2_GEMV_MAX_M), the
+    tensor-core "tiles" (bf16 x, g a multiple of 32) or the "simt" tiles."""
     if M <= K2_GEMV_MAX_M:
-        blocks, unit = -(-N // 128), group_size
-    else:
-        blocks, unit = -(-N // 64) * -(-M // (16 if M <= 16 else 64)), _K2_TILE_K
-    want = -(-target // blocks)
-    if want <= 1:
-        return K
-    units = -(-K // unit)
-    return min(-(-units // min(want, units)) * unit, K)
+        return "gemv"
+    return "tiles" if _tile_route(x2, M, group_size, K2_GEMV_MAX_M) else "simt"
 
 
 def woq_int8_cuda(
     x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """Launch K2 on x2 (M, K), f32 or bf16, on a CUDA device."""
+    """Launch K2 on x2 (M, K), f32 or bf16, on a CUDA device: the split-K
+    GEMV at M <= K2_GEMV_MAX_M; above it the tensor-core tiles for bf16 x
+    with g a multiple of 32, else the SIMT tiles (`k2_route`). One launch
+    either way."""
     from intel_extension_for_transformers_tpu_torch.ops.kernels import (
         check,
         load_kernels,
@@ -327,25 +341,33 @@ def woq_int8_cuda(
     out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
     if M == 0 or qt.N == 0:
         return out
-    gemv = M <= K2_GEMV_MAX_M
-    k_chunk = int8_k_chunk(M, qt.N, K, g, target_blocks(dev.index))
-    splits = -(-K // k_chunk)
-    part = torch.empty((splits, M, qt.N), dtype=torch.float32, device=dev) if splits > 1 else out
-    vec = (qt.N % 4 == 0 and data.data_ptr() % 4 == 0
-           and scales.data_ptr() % 16 == 0 and zeros.data_ptr() % 16 == 0)
+    N, target = qt.N, target_blocks(dev.index)
+    bm, route = 0, k2_route(x2, M, g)
+    if route == "gemv":
+        k_chunk, count, vec = gemv_k_chunk(N, K, g, target), -(-N // _GEMV_COLS), _gemv_vec(N, data, scales, zeros)
+    elif route == "simt":
+        count = -(-N // _K2_SIMT_BN) * -(-M // (16 if M <= 16 else 64))
+        k_chunk, vec = split_chunk(count, K, _K2_SIMT_K, target), 0
+    else:
+        bm, k_chunk = tile_plan(M, N, K, g, target, K2_TILE_MAX_BM)
+        count = -(-N // _TILE_BN) * -(-M // bm)
+        vec = int(K % 8 == 0 and _aligned16(x2)) + 2 * int(N % 16 == 0 and _aligned16(data))
+    part, counters = _split_workspace(dev, M, N, K, k_chunk, count, out)
     status = load_kernels().itx_woq_int8(
         x2.data_ptr(), data.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        out.data_ptr(), part.data_ptr(),
-        M, qt.N, K, g, int(asym), int(gemv), k_chunk, int(vec),
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        M, N, K, g, int(asym), _ROUTES[route], bm, k_chunk, vec,
         int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status, "itx_woq_int8")
     woq_int8_cuda.launches += 1
+    woq_int8_cuda.tile_launches += route == "tiles"
     return out
 
 
 woq_int8_cuda.launches = 0
+woq_int8_cuda.tile_launches = 0  # the launches of the tensor-core tiles among them
 
 
 def _round_up(x: int, m: int) -> int:

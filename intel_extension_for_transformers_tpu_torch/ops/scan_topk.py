@@ -4,9 +4,10 @@ Port of `intel_extension_for_transformers_tpu/ops/scan_topk.py`. At large
 query batches the (B, N) score matrix is what flat search pays for: writing
 it and reading it back for top-k costs 8·B·N bytes. K5,
 `csrc/scan_top2.cu`, never writes it: each doc tile of `n_tile` rows is
-scored in shared memory and reduced to each query's top-2 (score, global
-id) inside the kernel. A `torch.topk` over the tile winners then yields the
-oversample candidate set (`scan_topk_candidates`).
+scored on the SM (on the tensor cores where `k5_route` allows) and reduced
+to each query's top-2 (score, global id) inside the kernel. A `torch.topk`
+over the tile winners then yields the oversample candidate set
+(`scan_topk_candidates`).
 
 Why top-2 per tile: one winner per tile loses a true top-10 member whenever
 two land in the same tile; with two, only a three-way collision in one tile
@@ -58,10 +59,20 @@ def scan_top2_plain(
     return torch.cat(vals), torch.cat(ids).to(torch.int32)
 
 
+def k5_route(D: int, dtype: torch.dtype, *pointers: int) -> str:
+    """K5's kernel for rows of D values at the given addresses: the
+    "tensor_cores" take bf16 rows that 16-byte copies can stage (D % 8 == 0
+    and 16-byte-aligned bases), the "simt" kernel everything else."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and all(p % 16 == 0 for p in pointers):
+        return "tensor_cores"
+    return "simt"
+
+
 def scan_top2_cuda(
     queries: torch.Tensor, docs: torch.Tensor, size: int, n_tile: int = N_TILE
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K5 on CUDA tensors (cast to contiguous bf16 here)."""
+    """Launch K5 on CUDA tensors (cast to contiguous bf16 here): on the
+    tensor cores or the SIMT kernel, as `k5_route` picks. One launch."""
     from intel_extension_for_transformers_tpu_torch.ops.kernels import (
         check,
         load_kernels,
@@ -81,16 +92,19 @@ def scan_top2_cuda(
     ids = torch.empty((B, 2 * T), dtype=torch.int32, device=dev)
     if B == 0 or N == 0:
         return vals, ids
+    tensor_cores = k5_route(D, q.dtype, q.data_ptr(), d.data_ptr()) == "tensor_cores"
     status = load_kernels().itx_scan_top2(
         q.data_ptr(), d.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        B, N, D, int(size), n_tile, torch.cuda.current_stream(dev).cuda_stream,
+        B, N, D, int(size), n_tile, int(tensor_cores), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status, "itx_scan_top2")
     scan_top2_cuda.launches += 1
+    scan_top2_cuda.tile_launches += tensor_cores
     return vals, ids
 
 
 scan_top2_cuda.launches = 0
+scan_top2_cuda.tile_launches = 0  # the launches on the tensor cores among them
 
 
 def scan_top2(

@@ -56,10 +56,10 @@ PROMPT_TOKENS = 340
 WINDOW = 2048
 # the kernel names of the port's hand-written kernels, as the profiler shows them
 # (K1: its SIMT tiles, its GEMV and its tensor-core tiles, tile_kernel<Int4Tile>;
-# K2's split-K partials are summed by its own splitk_sum kernel; K3: its GEMV,
-# SIMT tiles and tile_kernel<W32Tile>; K4: bf16 on the tensor cores, f32 SIMT)
-KERNELS = {"woq_int4_kernel": "K1", "woq_int4_gemv": "K1", "Int4Tile": "K1", "woq_int8": "K2",
-           "splitk_sum": "K2", "woq_w32": "K3", "W32Tile": "K3", "flash_tc_kernel": "K4", "flash_kernel": "K4"}
+# K2: its GEMV, SIMT tiles and tile_kernel<Int8Tile>; K3: its GEMV, SIMT tiles
+# and tile_kernel<W32Tile>; K4: bf16 on the tensor cores, f32 SIMT)
+KERNELS = {"woq_int4_kernel": "K1", "woq_int4_gemv": "K1", "Int4Tile": "K1", "woq_int8": "K2", "Int8Tile": "K2",
+           "woq_w32": "K3", "W32Tile": "K3", "flash_tc_kernel": "K4", "flash_kernel": "K4"}
 
 
 def _device_us(evt) -> float:

@@ -1,18 +1,25 @@
-"""Time K1's and K3's tensor-core tiles on the card beside their yardsticks.
+"""Time K1's, K2's and K3's tensor-core tiles on the card beside their yardsticks.
 
 For the Llama-2-7B products (4096 -> 4096, 4096 -> 11008, 11008 -> 4096, and
-4096 -> 32000 for K3), int4 sym g128, bf16 x, one weight timed again and
-again (L2-warm, through the wrapper, CUDA events over 20 calls):
+4096 -> 32000 for K3), sym g128, bf16 x (int4 for K1 and K3, int8 for K2),
+one weight timed again and again (L2-warm, through the wrapper, CUDA events
+over 20 calls):
 
   * K1 (khalf): the split-K GEMV at M = 1-8 against the tiles at M = 1-16
     (the GEMV crossover that sets `K1_GEMV_MAX_M`); the tiles at M = 16,
     512 and 1024, at 512 and 1024 with BM = 128 beside the planned 64;
+  * K2 (int8): the split-K GEMV at M = 1-8 against the tiles at M = 1-16
+    (the crossover that sets `K2_GEMV_MAX_M`); the tiles at M = 16, 512 and
+    1024, at 512 and 1024 with BM = 128 beside the planned 64
+    (`K2_TILE_MAX_BM`), and the SIMT tiles (f32 x's route, and K2's bf16
+    route before the tensor cores) at every M beside them;
   * K3 (w32): the GEMV at M = 8 against the tiles at M = 8, 9 and 16; the
     tiles at M = 16, 512 and 2048 (BM = 64 beside the planned 128 at 512 and 2048);
   * beside each: its bound (bytes over 3.35 TB/s or operations over 989
     TFLOP/s), `torch._weight_int4pack_mm` on the same weight repacked once
     (checked within 2e-3 of the kernel's plain version first) and
-    dequantize into bf16 + `torch.matmul` (the M >= 1024 branch's cost);
+    dequantize into bf16 + `torch.matmul` (the M >= 1024 branch's cost;
+    K2's only yardstick: no one PyTorch call takes a group-scaled int8 weight);
   * K1 at the index scan (M = 16, K = 768, N = 100,000, g = 64) and the BGE
     3072 -> 768 product at M = 512;
   * at M <= 16, where the wrapper's host cost (~35-45 us a call) hides the
@@ -49,6 +56,7 @@ from intel_extension_for_transformers_tpu_torch.ops.packing import (
 )
 from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import (
     woq_int4_cuda,
+    woq_int8_cuda,
     woq_matmul_plain,
     woq_w32_cuda,
     woq_w32_plain,
@@ -182,6 +190,36 @@ def k1_rows(card: str, K: int, N: int, label: str, g: int = 128, Ms=(1, 2, 4, 8,
         print("profile_woq_tiles " + json.dumps(row), flush=True)
 
 
+def k2_rows(card: str, K: int, N: int, label: str, Ms=(1, 2, 4, 8, 9, 16, 512, 1024)) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(K + N + 2)
+    w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
+    qts = [quantize_groupwise(w.roll(i, 0), "int8", "sym", 128) for i in range(8)]
+    del w
+    qt = qts[0]
+    simt = dict(k2_route=lambda *a: "simt")
+    for M in Ms:
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        want = woq_matmul_plain(x, qt, torch.bfloat16)
+        row = dict(kernel="K2", label=label, M=M, K=K, N=N, g=128, card=card, bound_ms=bound_ms(M, K, N, qt))
+        for name, override in (("tiles", dict(K2_GEMV_MAX_M=0)), ("simt", simt)):
+            with _Override(**override):
+                rel = _rel(woq_int8_cuda(x, qt, torch.bfloat16), want)
+            assert rel <= 2e-3, (label, M, name, rel)
+            row[f"{name}_ms"] = _time(woq_int8_cuda, x, qt, **override)
+            if M <= 16:
+                row[f"{name}_graph_ms"] = _cold(woq_int8_cuda, x, qts, **override)
+        if M >= 512:
+            row["tiles_bm128_ms"] = _time(woq_int8_cuda, x, qt, K2_TILE_MAX_BM=128)
+        if M <= 8:
+            with _Override(K2_GEMV_MAX_M=8):
+                assert _rel(woq_int8_cuda(x, qt, torch.bfloat16), want) <= 2e-3
+                row["gemv_ms"] = events_ms(lambda: woq_int8_cuda(x, qt, torch.bfloat16), 20)
+                row["gemv_graph_ms"] = cold_ms(woq_int8_cuda, x, qts)[0]
+        if M >= 9:
+            row["dequant_matmul_ms"] = dequant_matmul_ms(x, qt)
+        print("profile_woq_tiles " + json.dumps(row), flush=True)
+
+
 def k3_rows(card: str, K: int, N: int, label: str, Ms=(1, 8, 9, 16, 512, 2048)) -> None:
     gen = torch.Generator(device="cuda").manual_seed(K + N + 1)
     w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
@@ -227,6 +265,8 @@ def main() -> int:
         k1_rows(card, K, N, label)
     k1_rows(card, 768, 100_000, "index scan", g=64, Ms=(16,), gemv_check=False)
     k1_rows(card, 3072, 768, "bge ffn_out", Ms=(512,), gemv_check=False)
+    for K, N, label in LLAMA:
+        k2_rows(card, K, N, label)
     for K, N, label in LLAMA + ((4096, 32000, "lm_head shape"),):
         k3_rows(card, K, N, label)
     return 0

@@ -254,8 +254,9 @@ def test_woq_split_tiles_are_deterministic_and_replay_from_a_graph(dev, layout):
 
 # K2 against its plain twin, which rounds the same way (bf16(s), exact q - z,
 # q·s rounded once to bf16): the two differ only in summation order (split-K
-# partials, warps), so f32 outputs hold 1e-5 relative; a bf16 output adds
-# one bf16 rounding: 2e-3.
+# partials, warps, mma), so f32 outputs hold 1e-5 relative; a bf16 output
+# adds one bf16 rounding: 2e-3. bf16 x above the GEMV takes the tensor-core
+# tiles, f32 x the SIMT tiles.
 @pytest.mark.parametrize("x_dtype,out_dtype,tol", [
     (torch.float32, torch.float32, 1e-5),
     (torch.bfloat16, torch.float32, 1e-5),
@@ -263,9 +264,9 @@ def test_woq_split_tiles_are_deterministic_and_replay_from_a_graph(dev, layout):
 ])
 @pytest.mark.parametrize("scheme,M,K,N,g", [
     ("sym", 1, 4096, 4096, 128),  # GEMV, split K
-    ("asym", 8, 1024, 300, 32),  # GEMV, 8 rows, ragged N
-    ("sym", 9, 768, 1000, 32),  # tiles of 16 rows, split K
-    ("asym", 64, 2048, 512, 128),  # tiles of 64 rows
+    ("asym", 8, 1024, 300, 32),  # tiles (SIMT: 16 rows), ragged N
+    ("sym", 9, 768, 1000, 32),  # tiles (SIMT: 16 rows), split K
+    ("asym", 64, 2048, 512, 128),  # tiles (SIMT: 64 rows)
     ("sym", 513, 1024, 257, 128),  # ragged M and N (byte loads)
     ("sym", 1, 11008, 4096, 128),  # the Llama-2-7B down product
 ])
@@ -283,31 +284,107 @@ def test_woq_int8_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dty
     assert _rel(got, want) <= tol
 
 
-def test_woq_int8_kernel_is_deterministic_and_dispatched(dev):
-    """Split-K sums in a fixed order: two runs give the same bits; and
-    `woq_matmul` sends an int8 weight at M < 1024 to K2."""
+@pytest.mark.parametrize("M", [1, 512])
+def test_woq_int8_kernel_is_deterministic_and_dispatched(dev, M):
+    """Split-K sums in a fixed order: two runs give the same bits (the GEMV
+    at M = 1, the tensor-core tiles at M = 512); and `woq_matmul` sends an
+    int8 weight at M < 1024 to K2, once."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn(1, 4096, device=dev, generator=gen).to(torch.bfloat16)
+    x = torch.randn(M, 4096, device=dev, generator=gen).to(torch.bfloat16)
     qt = packing.quantize_groupwise(torch.randn(4096, 4096, device=dev, generator=gen) * 0.02, "int8", "sym", 128)
     a = quant_matmul.woq_int8_cuda(x, qt, torch.bfloat16)
     b = quant_matmul.woq_int8_cuda(x, qt, torch.bfloat16)
     assert torch.equal(a, b)
-    before = quant_matmul.woq_int8_cuda.launches
+    before = (quant_matmul.woq_int8_cuda.launches, quant_matmul.woq_int8_cuda.tile_launches)
     c = quant_matmul.woq_matmul(x, qt)
-    assert quant_matmul.woq_int8_cuda.launches == before + 1 and torch.equal(a, c)
+    assert quant_matmul.woq_int8_cuda.launches == before[0] + 1 and torch.equal(a, c)
+    assert quant_matmul.woq_int8_cuda.tile_launches == before[1] + (M > quant_matmul.K2_GEMV_MAX_M)
 
 
-@pytest.mark.parametrize("B,N,D,size,n_tile", [
-    (64, 4096, 128, 4096, 1024),
-    (300, 5000, 384, 3333, 1024),
-    (70, 1000, 96, 1000, 256),
+# K2's split-K GEMV (K1's design) at M = 1 and, with K2_GEMV_MAX_M raised,
+# at 2 and 8 rows: 16-byte words (N = 4096), 4-byte (4100), bytes (4097);
+# K = 4096 splits into several groups, so the last block of each strip sums
+# the partials, and leaves the stream's strip counters at 0. Bars as above.
+@pytest.mark.parametrize("x_dtype,out_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-3),
 ])
-def test_scan_top2_kernel_matches_plain(dev, B, N, D, size, n_tile):
-    """Scores within 1e-4 absolute (unit rows, f32 sums in another order);
-    where an id differs, the two ids' scores are within that bound."""
-    gen = torch.Generator(device=dev).manual_seed(B + N)
-    q = torch.nn.functional.normalize(torch.randn(B, D, device=dev, generator=gen), dim=1)
-    d = torch.nn.functional.normalize(torch.randn(N, D, device=dev, generator=gen), dim=1)
+@pytest.mark.parametrize("scheme", ["sym", "asym"])
+@pytest.mark.parametrize("N", [4096, 4100, 4097])
+@pytest.mark.parametrize("M", [1, 2, 8])
+def test_woq_int8_gemv_matches_plain(dev, monkeypatch, M, N, scheme, x_dtype, out_dtype, tol):
+    monkeypatch.setattr(quant_matmul, "K2_GEMV_MAX_M", 8)
+    K = 4096
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    x = torch.randn(M, K, device=dev, generator=gen).to(x_dtype)
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.05, "int8", scheme, 128)
+    assert quant_matmul.k2_route(x, M, 128) == "gemv"
+    assert -(-K // quant_matmul.gemv_k_chunk(N, K, 128, quant_matmul.target_blocks(dev.index))) > 1
+    got = quant_matmul.woq_int8_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_matmul_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+    assert torch.equal(got, quant_matmul.woq_int8_cuda(x, qt, out_dtype))
+    counters = quant_matmul._k1_counters[(dev, torch.cuda.current_stream().cuda_stream, -(-N // 128))]
+    assert int(counters.abs().sum()) == 0
+
+
+# K2's tensor-core tiles (bf16 x, M > K2_GEMV_MAX_M, g a multiple of 32)
+# against the same plain twin and bars. K = 1024 is 8 (g 128) or 32 (g 32)
+# groups; the plans split K at the small M and N and not at M >= 512 with N
+# >= 11008 (`tile_plan`); N = 1000 (not a multiple of 128) takes byte
+# copies of the weight, the rest 16-byte copies. Two launches give the same
+# bits.
+@pytest.mark.parametrize("out_dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("N", [1000, 4096, 11008, 32000])
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("scheme", ["sym", "asym"])
+@pytest.mark.parametrize("M", [9, 16, 33, 512, 1023])
+def test_woq_int8_tiles_match_plain(dev, M, scheme, g, N, out_dtype, tol):
+    K = 1024
+    gen = torch.Generator(device=dev).manual_seed(M + N + g)
+    x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.05, "int8", scheme, g)
+    assert quant_matmul.k2_route(x, M, g) == "tiles"
+    before = quant_matmul.woq_int8_cuda.tile_launches
+    got = quant_matmul.woq_int8_cuda(x, qt, out_dtype)
+    again = quant_matmul.woq_int8_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_matmul_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul.woq_int8_cuda.tile_launches == before + 2
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+    assert torch.equal(got, again)
+
+
+def test_woq_int8_tile_plans_split_and_unsplit(dev):
+    """The tile cases above meet both plans on this card."""
+    target = quant_matmul.target_blocks(dev.index)
+    assert quant_matmul.tile_plan(9, 4096, 1024, 128, target, quant_matmul.K2_TILE_MAX_BM)[1] < 1024
+    assert quant_matmul.tile_plan(1023, 32000, 1024, 32, target, quant_matmul.K2_TILE_MAX_BM)[1] == 1024
+
+
+# K2's tiles on an x that starts 2 bytes past an aligned address (element
+# copies) and at the Llama widths, with g not a multiple of 32 (the SIMT
+# tiles) beside.
+@pytest.mark.parametrize("M,K,N,g", [(16, 4096, 4096, 128), (333, 4096, 1001, 64), (64, 11008, 4096, 128),
+                                     (40, 960, 512, 48)])
+def test_woq_int8_tiles_unaligned_x_and_llama_widths(dev, M, K, N, g):
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    base = torch.randn(M, K + 1, device=dev, generator=gen).to(torch.bfloat16)
+    qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int8", "asym", g)
+    assert quant_matmul.k2_route(base, M, g) == ("tiles" if g % 32 == 0 else "simt")
+    for x in (base[:, :K].contiguous(), base.flatten()[1:M * K + 1].view(M, K)):
+        got = quant_matmul.woq_int8_cuda(x, qt, torch.float32)
+        want = quant_matmul.woq_matmul_plain(x.contiguous(), qt, torch.float32)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5
+        assert torch.equal(got, quant_matmul.woq_int8_cuda(x, qt, torch.float32))
+
+
+def _scan_top2_matches_plain(q, d, size, n_tile):
     kv, ki = scan_topk.scan_top2_cuda(q, d, size, n_tile)
     pv, pi = scan_topk.scan_top2_plain(q, d, size, n_tile)
     torch.cuda.synchronize()
@@ -322,6 +399,60 @@ def test_scan_top2_kernel_matches_plain(dev, B, N, D, size, n_tile):
     sk = np.einsum("rd,rd->r", qf[rows], df[ki[rows, cols]])
     sp = np.einsum("rd,rd->r", qf[rows], df[pi[rows, cols]])
     assert np.all(np.abs(sk - sp) <= 1e-4)
+
+
+# K5 on the tensor cores (bf16 rows, D % 8 == 0, 16-byte aligned; every case
+# here) and on the SIMT kernel against the plain version: scores within 1e-4
+# absolute (unit rows, f32 sums in another order); where an id differs, the
+# two ids' scores are within that bound. B = 70, 129, 300 and 4133 are not
+# multiples of the 64 queries a block; sizes 3333, 2500, 1500 and 13500 end
+# inside a tile.
+@pytest.mark.parametrize("B,N,D,size,n_tile", [
+    (64, 4096, 128, 4096, 1024),
+    (300, 5000, 384, 3333, 1024),
+    (70, 1000, 96, 1000, 256),
+    (129, 3000, 768, 2500, 256),
+    (4133, 20000, 768, 13500, 1024),
+    (200, 2048, 96, 1500, 1024),
+])
+def test_scan_top2_kernel_matches_plain(dev, B, N, D, size, n_tile):
+    gen = torch.Generator(device=dev).manual_seed(B + N)
+    q = torch.nn.functional.normalize(torch.randn(B, D, device=dev, generator=gen), dim=1)
+    d = torch.nn.functional.normalize(torch.randn(N, D, device=dev, generator=gen), dim=1)
+    before = scan_topk.scan_top2_cuda.tile_launches
+    _scan_top2_matches_plain(q, d, size, n_tile)
+    assert scan_topk.scan_top2_cuda.tile_launches == before + 1
+
+
+@pytest.mark.parametrize("D,offset", [(100, 0), (768, 1)])
+def test_scan_top2_simt_route_matches_plain(dev, D, offset):
+    """D % 8 != 0, or bf16 queries one element past an aligned address: the
+    SIMT kernel, with the same bars."""
+    B, N, size = 150, 3000, 2900
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q = torch.empty(B * D + offset, dtype=torch.bfloat16, device=dev)[offset:].view(B, D)
+    q.copy_(torch.nn.functional.normalize(torch.randn(B, D, device=dev, generator=gen), dim=1))
+    d = torch.nn.functional.normalize(torch.randn(N, D, device=dev, generator=gen), dim=1)
+    assert scan_topk.k5_route(D, q.dtype, q.data_ptr(), 0) == "simt"
+    before = (scan_topk.scan_top2_cuda.launches, scan_topk.scan_top2_cuda.tile_launches)
+    _scan_top2_matches_plain(q, d, size, 1024)
+    assert (scan_topk.scan_top2_cuda.launches, scan_topk.scan_top2_cuda.tile_launches) == (before[0] + 1, before[1])
+
+
+def test_scan_top2_tensor_cores_ties_go_to_highest_id(dev):
+    """Exact duplicate docs score equal on the tensor cores; the higher id
+    wins, as in the plain version: each tile's top-2 is one doc's two copies."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    docs = torch.randn(512, 128, device=dev, generator=gen).repeat_interleave(2, dim=0)  # ids 2j, 2j + 1 equal
+    q = torch.randn(64, 128, device=dev, generator=gen)
+    before = scan_topk.scan_top2_cuda.tile_launches
+    kv, ki = scan_topk.scan_top2_cuda(q, docs, 1024, 256)
+    pv, pi = scan_topk.scan_top2_plain(q, docs, 1024, 256)
+    torch.cuda.synchronize()
+    assert scan_topk.scan_top2_cuda.tile_launches == before + 1
+    assert torch.equal(ki, pi)
+    assert bool((ki[:, 0::2] % 2 == 1).all()) and torch.equal(ki[:, 1::2], ki[:, 0::2] - 1)
+    assert torch.equal(kv[:, 0::2], kv[:, 1::2])
 
 
 # K3 against its plain version: both take exact products of x with 128 + v'

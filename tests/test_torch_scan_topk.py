@@ -93,3 +93,30 @@ def test_scan_topk_candidates_matches(data):
         differ = set(rj.tolist()) ^ set(rt.tolist())
         # only candidates at the 32nd score may differ
         assert all(abs(vj[list(rj).index(i)] - kth) <= VAL_TOL for i in differ if i in rj)
+
+
+@pytest.mark.parametrize("D,dtype,pointers,route", [
+    (768, torch.bfloat16, (0, 4096), "tensor_cores"),
+    (96, torch.bfloat16, (512, 1 << 40), "tensor_cores"),
+    (8, torch.bfloat16, (16, 32), "tensor_cores"),
+    (100, torch.bfloat16, (0, 4096), "simt"),  # rows of 200 bytes: no 16-byte copies
+    (768, torch.bfloat16, (2, 4096), "simt"),  # queries 2 bytes past an aligned address
+    (768, torch.bfloat16, (0, 4104), "simt"),  # docs 8 bytes past one
+    (768, torch.float32, (0, 4096), "simt"),
+    (768, torch.float16, (0, 4096), "simt"),
+])
+def test_k5_route(D, dtype, pointers, route):
+    """K5 takes the tensor cores for bf16 rows that 16-byte copies can
+    stage, the SIMT kernel where they cannot run."""
+    assert tst.k5_route(D, dtype, *pointers) == route
+
+
+def test_scan_top2_on_a_cpu_tensor_never_launches_k5():
+    rng = np.random.default_rng(3)
+    q, docs = (torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32)) for n in (4, 64))
+    before = (tst.scan_top2_cuda.launches, tst.scan_top2_cuda.tile_launches)
+    tst.scan_top2(q, docs, 64, n_tile=16)
+    assert (tst.scan_top2_cuda.launches, tst.scan_top2_cuda.tile_launches) == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        tst.scan_top2_cuda(q, docs, 64, 16)
+

@@ -92,18 +92,53 @@ def test_int8_dequantize_once_branch(dtype):
     assert _rel(got.float().numpy(), np.asarray(want.astype(jnp.float32))) <= ONCE_REL_TOL[dtype]
 
 
-def test_int8_k_chunk_splits_on_group_boundaries():
-    """K2's split-K: GEMV splits on group boundaries, tiles on 32-row steps,
-    none where the tiles alone give two blocks an SM (264 on an H100's 132
-    SMs); no split is empty."""
-    for M, N, K, g in ((1, 4096, 4096, 128), (1, 4096, 11008, 128), (8, 300, 1024, 32),
-                       (16, 4096, 4096, 128), (300, 300, 256, 64), (512, 4096, 4096, 128)):
-        chunk = tqm.int8_k_chunk(M, N, K, g, 2 * 132)
-        splits = -(-K // chunk)
-        assert chunk % (g if M <= tqm.K2_GEMV_MAX_M else 32) == 0 or chunk == K
-        assert (splits - 1) * chunk < K
-    assert tqm.int8_k_chunk(1, 4096, 4096, 128, 2 * 132) == 512  # 32 column strips x 8 splits
-    assert tqm.int8_k_chunk(512, 4096, 4096, 128, 2 * 132) == 4096  # 512 tiles: no split
+@pytest.mark.parametrize("M,N,K,g", [
+    (1, 4096, 4096, 128), (1, 4096, 11008, 128), (1, 32000, 4096, 128), (1, 300, 1024, 32),
+    (9, 4096, 4096, 128), (16, 11008, 4096, 32), (33, 1000, 2048, 128), (300, 300, 256, 64),
+    (512, 4096, 4096, 128), (1023, 32000, 4096, 128),
+])
+def test_int8_k_chunk_splits_on_group_boundaries(M, N, K, g):
+    """K2's split K over its span of K rows, by `gemv_k_chunk` (the GEMV,
+    128-column strips) at M = 1 and `tile_plan` (the tensor-core tiles,
+    BM x 128) above: each chunk is whole groups or all of K, the splits
+    cover K exactly with none empty, and the blocks reach the target (two
+    an SM, 264 on an H100's 132) unless every split is one group."""
+    target = 2 * 132
+    if M <= tqm.K2_GEMV_MAX_M:
+        chunk, blocks = tqm.gemv_k_chunk(N, K, g, target), -(-N // 128)
+    else:
+        bm, chunk = tqm.tile_plan(M, N, K, g, target, tqm.K2_TILE_MAX_BM)
+        assert bm in (16, 32, 64, 128) and bm <= tqm.K2_TILE_MAX_BM and (M <= bm or bm == tqm.K2_TILE_MAX_BM)
+        blocks = -(-N // 128) * -(-M // bm)
+    splits = -(-K // chunk)
+    assert chunk % g == 0 or chunk == K
+    assert (splits - 1) * chunk < K <= splits * chunk
+    assert blocks * splits >= target or chunk == g or splits == K // g
+    assert splits == 1 or blocks < target
+
+
+def test_int8_k_chunk_values():
+    """The GEMV's plan at the Llama-2-7B decode product: 32 strips x 11
+    splits of 3 groups (the last of 2), K1's plan; the tiles at M = 512 on 4096 -> 4096 (32 x 4 tiles
+    of 128 rows) split in 3 of 11, 11 and 10 groups."""
+    assert tqm.gemv_k_chunk(4096, 4096, 128, 2 * 132) == 384
+    assert tqm.int4_k_chunk(4096, 8192, 128, 2 * 132) == tqm.gemv_k_chunk(4096, 4096, 128, 2 * 132)
+    assert tqm.tile_plan(512, 4096, 4096, 128, 2 * 132, 128) == (128, 11 * 128)
+    assert tqm.tile_plan(1023, 32000, 4096, 128, 2 * 132, 128) == (128, 4096)
+
+
+@pytest.mark.parametrize("dtype,M,g,route", [
+    (torch.bfloat16, 1, 128, "gemv"), (torch.float32, 1, 128, "gemv"), (torch.bfloat16, 1, 48, "gemv"),
+    (torch.bfloat16, 2, 128, "tiles"), (torch.bfloat16, 9, 32, "tiles"), (torch.bfloat16, 1023, 64, "tiles"),
+    (torch.float32, 2, 128, "simt"), (torch.float32, 512, 128, "simt"),
+    (torch.bfloat16, 512, 48, "simt"), (torch.bfloat16, 16, 16, "simt"),
+])
+def test_k2_route(dtype, M, g, route):
+    """K2's kernel: the GEMV up to K2_GEMV_MAX_M rows at every dtype and g;
+    above it the tensor-core tiles only for bf16 x with g a multiple of 32,
+    the SIMT tiles where they cannot run."""
+    assert tqm.K2_GEMV_MAX_M == 1
+    assert tqm.k2_route(torch.empty(0, dtype=dtype), M, g) == route
 
 
 def test_int8_on_a_cpu_tensor_never_launches_k2():
