@@ -8,7 +8,8 @@ from_pretrained, chat) at Llama-2-7B width; and checks each hand-written
 kernel against its plain PyTorch version on the card:
 
   0. probe the card (sm_90), print its name and power limit, TF32 off;
-  1. build the kernels from csrc/ with nvcc (sm_90a), one process per source;
+  1. build the kernels from csrc/ with nvcc (sm_90a), one process per source,
+     and the yardsticks of csrc/yardsticks/ (earlier designs timed beside them);
   2. K1 (int4 WOQ GEMM), K2 (int8 WOQ GEMM), K5 (scan + per-tile top-2),
      K3 (w32 decode GEMM), K4 (flash attention), K6 (IVF top-k scan) and K7
      (IVF per-list candidates) against their plain versions at the paths'
@@ -19,8 +20,9 @@ kernel against its plain PyTorch version on the card:
      K3's sym int4 bf16 rows beside `torch._weight_int4pack_mm`, K1, K2 and
      K3 beside dequantize + `torch.matmul`, K2's and K5's tensor-core routes
      beside their SIMT kernels, K5 beside the `torch.matmul` of its scores
-     alone, and K1 and K2 at M = 1 on the Llama decode products with a cold
-     L2 (K1 beside K3 on the same); faults
+     alone, and K1, K2 and K3 at M = 1 on the Llama decode products with a
+     cold L2 (K1 beside K3 on the same; K3 beside the library call and the
+     column-a-lane GEMV its split-K GEMV replaced); faults
      planted in K6's inputs (scales one group late, int4 nibbles swapped)
      must fail the K6 bar;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
@@ -32,7 +34,8 @@ kernel against its plain PyTorch version on the card:
      (RTN, g = 128), with phase 3's agent as the retrieval plugin;
      predict_stream on 4 queries (2 greedy, 2 sampled) on the khalf model
      (K1), then prepare_for_inference and the 2 greedy queries again on the
-     w32 model (K3); the two held against each other product by product and
+     w32 model (K3: its split-K GEMV in every decode step, split as
+     planned); the two held against each other product by product and
      at the first step's logits, and again with faults planted in the w32
      weights, which the bars must reject;
   6. scoring: evaluate_perplexity over 4 windows of 2048 byte tokens on the
@@ -410,6 +413,7 @@ def main() -> int:
         int4pack_khalf,
         int4pack_mm,
         int4pack_w32,
+        w32_gemv_colwise,
     )
 
     # ---- phase 0: the card ----
@@ -427,6 +431,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load_kernels()
     print(f"build: {kernels.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels.load_yardsticks()
+    print(f"build: the yardsticks of csrc/yardsticks/ in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 2: each kernel against its plain version ----
     def rel_err(got, want):
@@ -717,6 +724,47 @@ def main() -> int:
         del qts, w32s
     torch.cuda.empty_cache()
 
+    def k3_cold_case(label, K, N):
+        """K3 at M = 1 as a w32 decode step meets its products (the split-K
+        GEMV): 8 copies of the weight, device time by graph replay
+        (`cold_ms`), checked against `woq_w32_plain` first; beside it
+        `torch._weight_int4pack_mm` on the same 8 copies and the
+        column-a-lane GEMV that the split-K GEMV replaced (a yardstick of
+        csrc/yardsticks/), each checked too."""
+        gen = torch.Generator(device=dev).manual_seed(K + N + 5)
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+        qts = [to_decode_layout(quantize_groupwise(w.roll(i, 0), "int4", "sym", 128)) for i in range(8)]
+        del w
+        x = torch.randn(1, K, generator=gen, device=dev).to(bf16)
+        gemv0 = woq_w32_cuda.gemv_launches
+        got = woq_w32_cuda(x, qts[0], bf16)
+        check(woq_w32_cuda.gemv_launches == gemv0 + 1, f"K3 {label} M=1 took the split-K GEMV")
+        want = woq_w32_plain(x, qts[0], bf16)
+        colwise_rel = rel_err(w32_gemv_colwise(x, qts[0]), want)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        check(rel <= 2e-3 and bool(torch.isfinite(got.float()).all()), f"K3 {label} L2-cold rel {rel} > 2e-3")
+        check(colwise_rel <= 2e-3, f"the column-a-lane GEMV on K3 {label}: rel {colwise_rel} > 2e-3")
+        splits = -(-(-(-K // 512) * 512) // quant_matmul.w32_k_chunk(N, K, 1, quant_matmul.target_blocks(dev.index)))
+        case = dict(label=f"{label} L2-cold", M=1, K=K, N=N, g=128, scheme="sym", dtype="bfloat16",
+                    route=quant_matmul.k3_route(x, 1, 128), splits=splits, rel_err=rel,
+                    max_abs_err=float((got.float() - want.float()).abs().max()), bar=2e-3, plain_ms=None,
+                    **bound(nbytes(x, qts[0].data, qts[0].scales, got), 2 * K * N, "bfloat16"))
+        case["ms"], case["eager_ms"] = cold_ms(woq_w32_cuda, x, qts)
+        case["colwise_gemv_ms"] = cold_ms(w32_gemv_colwise, x, qts)[0]
+        case["library_ms"], case["library"] = int4pack_ms(
+            x, qts, woq_matmul_plain(x, from_decode_layout(qts[0]), bf16), int4pack_w32)
+        case["colwise_over_split_k"] = case["colwise_gemv_ms"] / case["ms"]
+        if case["library_ms"] is not None:
+            case["split_k_over_library"] = case["ms"] / case["library_ms"]
+        print("K3 " + json.dumps(case))
+        k3_cases.append(case)
+        del qts
+
+    for K, N, lbl in ((4096, 4096, "qkvo"), (4096, 11008, "gate/up"), (11008, 4096, "down")):
+        k3_cold_case(lbl, K, N)
+    torch.cuda.empty_cache()
+
     w = torch.randn(4096, 4096, generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 0.02
     k3_case("qkvo asym", 16, to_decode_layout(quantize_groupwise(w, "int4", "asym", 128)), bf16, 20)
     k3_case("qkvo g32 fold", 64, to_decode_layout(quantize_groupwise(w, "int4", "sym", 32)), bf16, 20)
@@ -786,6 +834,7 @@ def main() -> int:
             fn.launches = 0
         for fn in tiled.values():
             fn.tile_launches = 0
+        woq_w32_cuda.gemv_launches = woq_w32_cuda.split_gemv_launches = 0
 
     def add_counts(phase_name):
         got = {k: fn.launches for k, fn in counters.items()}
@@ -1076,6 +1125,17 @@ def main() -> int:
     c5 = add_counts("phase 5 (w32)")
     check(c5["woq_w32_tiles"] >= 2, "K3's tensor-core tiles ran in every w32 prefill")
     check(all(r["k3"] > 0 and r["k1"] == 0 for r in recs_w32), "K3, not K1, ran inside generate_stream")
+    # each decode step (every token after the prefill's) runs each int4
+    # product at M = 1 on K3's split-K GEMV, split as `w32_k_chunk` plans
+    decode_steps = sum(r["new_tokens"] - 1 for r in recs_w32)
+    planned = {f"{m.qt.K}->{m.qt.N}": -(-(-(-m.qt.K // 512) * 512) // quant_matmul.w32_k_chunk(
+        m.qt.N, m.qt.K, 1, quant_matmul.target_blocks(dev.index)))
+        for m in bot.params.modules() if isinstance(m, WOQLinear)}
+    gemv, split_gemv = woq_w32_cuda.gemv_launches, woq_w32_cuda.split_gemv_launches
+    print(f"phase 5 (w32) decode: {gemv} launches of K3's split-K GEMV, {split_gemv} of them split, for "
+          f"{decode_steps} decode steps x {n_woq} products; planned splits {json.dumps(planned)}")
+    check(gemv == decode_steps * n_woq, "K3's split-K GEMV ran every product of every w32 decode step")
+    check(split_gemv == gemv and all(n > 1 for n in planned.values()), "K3's GEMV split K where planned")
     logits_w32, logits_w32_1 = first_logits(probe), first_logits(probe, depth=1)
     generation.generate_stream = real_stream
     check(all(r["k2"] == 0 for r in recs_khalf + recs_w32), "K2 ran in no int4 request")
@@ -1341,8 +1401,11 @@ def main() -> int:
          "tile_launches": tile_launches["scan_top2"], "simt_ms": k5_full["simt_ms"],
          "scores_matmul_ms": k5_full["scores_matmul_ms"]},
         {**row("woq_w32", "woq_w32.cu", "quant_matmul.py:263", k3_cases, k3_decode),
-         "tile_launches": tile_launches["woq_w32"],
-         "gate_up_tiles": {key: k3_tiles[key] for key in shown}},
+         "gemv_source": f"{PKG}/csrc/woq_w32_gemv.cu", "tile_launches": tile_launches["woq_w32"],
+         "gate_up_tiles": {key: k3_tiles[key] for key in shown},
+         "decode_cold": {c["label"]: {key: c[key] for key in ("M", "K", "N", "route", "splits", "ms", "eager_ms",
+                                                               "bound_ms", "bound_by", "library_ms", "colwise_gemv_ms")}
+                         for c in k3_cases if c["label"].endswith("L2-cold")}},
         row("flash_attention", "flash_attention.cu", "flash_attention.py:38", k4_cases, k4_window),
         row("ivf_scan_topk", "ivf_scan.cu", "ivf_scan.py:178", ivf_cases["K6"], k6_int8),
         row("ivf_scan_candidates", "ivf_scan.cu", "ivf_scan.py:511", ivf_cases["K7"], k7_hi),

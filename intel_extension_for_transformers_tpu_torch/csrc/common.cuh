@@ -153,4 +153,19 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int splits, int* fl
   return last;
 }
 
+// last_to_arrive with one thread's acq_rel atomic in place of a fence in
+// every thread: the barrier orders the block's partial stores before the
+// atomic, its release publishes them, and the acquire of the block that
+// arrives last sees every split's (the pattern of a grid-wide barrier).
+__device__ __forceinline__ bool last_to_arrive_acq_rel(int* counter, int splits, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int prev;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n" : "=r"(prev) : "l"(counter) : "memory");
+    *flag = prev == splits - 1;
+  }
+  __syncthreads();
+  return *flag;
+}
+
 }  // namespace itx

@@ -1,5 +1,6 @@
-// The pieces of the split-K GEMVs of K1 (woq_int4.cu, khalf int4) and K2
-// (woq_int8.cu, int8) at decode, M <= 8, sm_90a.
+// The pieces of the split-K GEMVs of K1 (woq_int4.cu, khalf int4), K2
+// (woq_int8.cu, int8) and K3 (woq_w32_gemv.cu, w32 int4) at decode,
+// M <= 8, sm_90a.
 //
 // A block of 8 warps owns a strip of 128 output columns. Each lane reads CPL
 // adjacent columns of one weight row as one word: 16 bytes (8 lanes a row,
@@ -73,8 +74,9 @@ __device__ __forceinline__ void load_row(const float* a, size_t row, int n, int 
 
 // The end of a GEMV block (see above). acc[m][c] is this lane's sum for row
 // m, column c0 + c of the strip; red is the block's __shared__
-// float[kWarps][TM][kCols], is_last a __shared__ int.
-template <int TM, int CPL, typename TO>
+// float[kWarps][TM][kCols], is_last a __shared__ int. kAcqRel: the blocks
+// arrive by itx::last_to_arrive_acq_rel (K3) rather than last_to_arrive.
+template <int TM, int CPL, typename TO, bool kAcqRel = false>
 __device__ __forceinline__ void finish(float (&acc)[TM][CPL], float (*red)[TM][kCols], int* is_last, TO* out,
                                        float* part, int* counters, int M, int N) {
   using Sh = Shape<CPL>;
@@ -106,7 +108,11 @@ __device__ __forceinline__ void finish(float (&acc)[TM][CPL], float (*red)[TM][k
       part[blockIdx.y * MN + o] = sum;
     }
   }
-  if (direct || !itx::last_to_arrive(&counters[blockIdx.x], gridDim.y, is_last)) return;
+  if (direct) return;
+  if (!(kAcqRel ? itx::last_to_arrive_acq_rel(&counters[blockIdx.x], gridDim.y, is_last)
+                : itx::last_to_arrive(&counters[blockIdx.x], gridDim.y, is_last))) {
+    return;
+  }
   for (int t = threadIdx.x; t < TM * kCols; t += kThreads) {
     const int m = t / kCols, c = t % kCols;
     const int col = blockIdx.x * kCols + c;

@@ -35,18 +35,17 @@
 // the loads, not the ALUs, bound it. As M grows the operations take over:
 // 2 M K N at 989 TFLOP/s in bf16 on the tensor cores (0.069-0.543 ms for
 // the Llama-2-7B products at M = 2048), 67 TFLOP/s in f32 on the SIMT tiles.
-// Design:
-//  * M <= 8 (always the m1 branch): a GEMV kernel (one column per thread,
-//    eight warps splitting each 512-row block's 64 word rows, the next
-//    block's words loaded while the current one is summed, a shared-memory
-//    reduction across warps at the end).
-//  * M > 8, bf16 x, g a multiple of 32: the tensor-core tiles of woq_tc.cuh
-//    (W32Tile below). A stage is 64 natural rows of one 128-row plane (32
-//    when g % 64 != 0): 32 word rows x 128 columns by cp.async, and the 64
-//    x columns. One word view is the B-fragment register of mma.m16n8k16
-//    as it stands (rows 2kw and 2kw + 1 of one column, low half first), so
-//    a B register costs one shift, AND and OR. m1: each group's k-steps sum into a per-group f32
-//    fragment, scaled after the dot. For asym, B is 128 + v' (exact) and
+// Design, one launch a product (the route is ops/quant_matmul.py::k3_route):
+//  * "gemv" (M <= K3_GEMV_MAX_M; f32 x or g not a multiple of 32 up to 8
+//    rows; always the m1 branch): the split-K GEMV of woq_w32_gemv.cu.
+//  * "tiles" (bf16 x, g a multiple of 32, above K3_GEMV_MAX_M rows): the
+//    tensor-core tiles of woq_tc.cuh (W32Tile below). A stage is 64 natural
+//    rows of one 128-row plane (32 when g % 64 != 0): 32 word rows x 128
+//    columns by cp.async, and the 64 x columns. One word view is the
+//    B-fragment register of mma.m16n8k16 as it stands (rows 2kw and 2kw + 1
+//    of one column, low half first), so a B register costs one shift, AND
+//    and OR. m1: each group's k-steps sum into a per-group f32 fragment,
+//    scaled after the dot. For asym, B is 128 + v' (exact) and
 //    acc += part * s - sum(x_g) * s * zc in f32, s * zc formed in f32 and
 //    sum(x_g) per row from one more mma of the staged x with a B of ones
 //    (exact products, f32 sums): the Pallas kernel's order. For sym, B is
@@ -58,11 +57,11 @@
 //    Re-reading a word for each of its 4 planes costs L2 traffic, not
 //    device-memory traffic: the stages of one column block walk the planes
 //    of a 512-row block one after the other.
-//  * Otherwise (f32 x: HIGHEST precision has no tensor-core route of equal
-//    accuracy here; or g not a multiple of 32): a tiled SIMT kernel, a
-//    64 x 64 output tile per block, K walked in spans of 16 or 32 natural
-//    rows whose words are decoded once into shared memory and reused by all
-//    64 rows, a 4 x 4 register tile per thread.
+//  * "simt" above 8 rows otherwise (f32 x: HIGHEST precision has no
+//    tensor-core route of equal accuracy here; or g not a multiple of 32):
+//    a tiled SIMT kernel, a 64 x 64 output tile per block, K walked in spans
+//    of 16 or 32 natural rows whose words are decoded once into shared
+//    memory and reused by all 64 rows, a 4 x 4 register tile per thread.
 // Later work (ROADMAP): wgmma + TMA for the tiles; f32 x on the tensor cores.
 
 #include <stdint.h>
@@ -83,91 +82,6 @@ __device__ __forceinline__ void decode_pair(uint32_t w, int j, float& lo, float&
 template <typename TX>
 __device__ __forceinline__ float load_x(const TX* x, int M, int K, int m, int k) {
   return (m < M && k < K) ? itx::to_float(x[static_cast<size_t>(m) * K + k]) : 0.f;
-}
-
-// ---- M <= 8: GEMV over column strips (m1 branch) --------------------------
-constexpr int kGemvCols = 32;  // one warp's lanes
-
-template <typename TX, typename TO, int TM>
-__global__ void __launch_bounds__(kThreads)
-woq_w32_gemv(const TX* __restrict__ x, const uint32_t* __restrict__ words,
-             const float* __restrict__ scales, const float* __restrict__ zeros,
-             TO* __restrict__ out, int M, int N, int K, int Kp, int group_size,
-             int asym) {
-  __shared__ float xs[TM][512];
-  __shared__ float red[kThreads / 32][TM][kGemvCols];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;  // word rows 8 warp .. 8 warp + 7 of each block
-  const int n = blockIdx.x * kGemvCols + lane;
-  const bool col_ok = n < N;
-  const int nblocks = Kp / 512;
-
-  float acc[TM];
-#pragma unroll
-  for (int m = 0; m < TM; ++m) acc[m] = 0.f;
-
-  uint32_t cur[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    cur[i] = col_ok ? words[static_cast<size_t>(warp * 8 + i) * N + n] : 0u;
-
-  for (int b = 0; b < nblocks; ++b) {
-    __syncthreads();  // the previous block's x is consumed
-    for (int i = threadIdx.x; i < TM * 512; i += kThreads)
-      xs[i / 512][i % 512] = load_x(x, M, K, i / 512, b * 512 + i % 512);
-    uint32_t nxt[8];
-    const bool more = b + 1 < nblocks;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      nxt[i] = (more && col_ok)
-                   ? words[static_cast<size_t>((b + 1) * 64 + warp * 8 + i) * N + n]
-                   : 0u;
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float part[TM], xsum[TM];
-#pragma unroll
-      for (int m = 0; m < TM; ++m) part[m] = xsum[m] = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float lo, hi;
-        decode_pair(cur[i], j, lo, hi);
-        const int r = 128 * j + 2 * (warp * 8 + i);
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          const float x0 = xs[m][r], x1 = xs[m][r + 1];
-          part[m] = fmaf(x0, lo, part[m]);
-          part[m] = fmaf(x1, hi, part[m]);
-          xsum[m] += x0 + x1;
-        }
-      }
-      // the warp's 16 rows of plane j lie in one group
-      const int grp = (b * 512 + 128 * j + 16 * warp) / group_size;
-      if (col_ok) {
-        const size_t gi = static_cast<size_t>(grp) * N + n;
-        const float s = scales[gi];
-        const float corr = s * (asym ? zeros[gi] + 128.f : 136.f);
-#pragma unroll
-        for (int m = 0; m < TM; ++m) acc[m] += part[m] * s - xsum[m] * corr;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cur[i] = nxt[i];
-  }
-
-#pragma unroll
-  for (int m = 0; m < TM; ++m) red[warp][m][lane] = acc[m];
-  __syncthreads();
-  for (int t = threadIdx.x; t < TM * kGemvCols; t += kThreads) {
-    const int m = t / kGemvCols, c = t % kGemvCols;
-    const int col = blockIdx.x * kGemvCols + c;
-    if (m >= M || col >= N) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) sum += red[w][m][c];
-    out[static_cast<size_t>(m) * N + col] = itx::from_float<TO>(sum);
-  }
 }
 
 // ---- M > 8: tiled SIMT GEMM (both branches) -------------------------------
@@ -451,25 +365,13 @@ template <int BM>
 using W32TileFoldG32 = W32Tile<BM, true, 32>;
 
 template <typename TX, typename TO>
-void launch(const void* x, const void* words, const void* scales, const void* zeros,
-            void* out, int M, int N, int K, int Kp, int group_size, int asym, int m1,
-            cudaStream_t stream) {
+void launch(const void* x, const void* words, const void* scales, const void* zeros, void* out, int M, int N,
+            int K, int Kp, int group_size, int asym, int m1, cudaStream_t stream) {
   const auto* xp = static_cast<const TX*>(x);
   const auto* wp = static_cast<const uint32_t*>(words);
   const auto* sp = static_cast<const float*>(scales);
   const auto* zp = static_cast<const float*>(zeros);
   auto* op = static_cast<TO*>(out);
-  if (M <= 8 && m1) {
-    const dim3 grid((N + kGemvCols - 1) / kGemvCols);
-    if (M == 1) {
-      woq_w32_gemv<TX, TO, 1><<<grid, kThreads, 0, stream>>>(xp, wp, sp, zp, op, M, N, K, Kp,
-                                                             group_size, asym);
-    } else {
-      woq_w32_gemv<TX, TO, 8><<<grid, kThreads, 0, stream>>>(xp, wp, sp, zp, op, M, N, K, Kp,
-                                                             group_size, asym);
-    }
-    return;
-  }
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   if (group_size % 32 == 0) {
     woq_w32_tiled<TX, TO, 32><<<grid, kThreads, 0, stream>>>(xp, wp, sp, zp, op, M, N, K, Kp,
@@ -485,12 +387,12 @@ void launch(const void* x, const void* words, const void* scales, const void* ze
 // x: (M, K) f32 or bf16 (x_bf16 = 1), K <= Kp; words: int32 (Kp/8, N);
 // scales: f32 (Kp/g, N); zeros: f32 (Kp/g, N), read only if asym; out: (M, N)
 // f32 or bf16 (out_bf16 = 1); m1 selects the branch (see above). bm = 0
-// takes the GEMV (M <= 8) or the SIMT tiles; bm in {16, 32, 64, 128} the
-// tensor-core tiles (bf16 x, g % 32 == 0), split along K into k_chunk rows
-// (a multiple of g; part is an f32 (splits, M, N) workspace and counters
-// holds ceil(M / bm) * ceil(N / 128) ints that are 0, both unread with one
-// split); vec = 1 when x (and K) allow 16-byte copies, + 2 when words (and N)
-// do. Returns the launch's CUDA error (cudaGetLastError()).
+// takes the SIMT tiles; bm in {16, 32, 64, 128} the tensor-core tiles (bf16
+// x, g % 32 == 0), split along K into k_chunk rows (a multiple of g; part
+// is an f32 (splits, M, N) workspace and counters holds ceil(M / bm) *
+// ceil(N / 128) ints that are 0, both unread with one split); vec = 1 when
+// x (and K) allow 16-byte copies, + 2 when words (and N) do. The GEMV is
+// woq_w32_gemv.cu's. Returns the launch's CUDA error (cudaGetLastError()).
 extern "C" int itx_woq_w32(const void* x, const void* words, const void* scales,
                            const void* zeros, void* out, void* part, void* counters, int M,
                            int N, int K, int Kp, int group_size, int asym, int m1, int bm,

@@ -10,9 +10,9 @@ Port of `intel_extension_for_transformers_tpu/ops/quant_matmul.py`:
    dequantized once into the compute dtype and multiplied with
    `torch.matmul` (the JAX package's dequantize-once branch; M >= 1024 was
    chosen on a TPU). Below that a 4-bit weight goes to K1,
-   `csrc/woq_int4.cu`, and an int8 weight to K2, `csrc/woq_int8.cu`: each a
-   split-K GEMV at M = 1 (`csrc/woq_gemv.cuh`) and tiles above, on the
-   tensor cores for bf16 x (`csrc/woq_tc.cuh`); neither writes the
+   `csrc/woq_int4.cu`, and an int8 weight to K2, `csrc/woq_int8.cu`. K1, K2
+   and K3 each run a split-K GEMV at decode (`csrc/woq_gemv.cuh`) and tiles
+   above, on the tensor cores for bf16 x (`csrc/woq_tc.cuh`); none writes the
    dequantized weight to device memory. K1, K2 and K3 take every shape the
    packing allows, so there is no fallback for unfriendly shapes.
 3. `woq_linear` and the `WOQLinear` module: a linear layer over a
@@ -161,13 +161,50 @@ def split_chunk(tiles: int, span: int, unit: int, target: int) -> int:
     return min(chunk * unit, span)
 
 
-K3_GEMV_MAX_M = 8  # K3 runs its GEMV up to this many rows (csrc/woq_w32.cu), tiles above
+# K3 runs its split-K GEMV (csrc/woq_w32_gemv.cu, which takes up to 8 rows)
+# up to this many rows where the tensor-core tiles can take the product,
+# tiles above: on the H100 the tiles beat the GEMV from M = 2 on the
+# Llama-2-7B products by device time; f32 x keeps the GEMV up to 8 rows,
+# 6-15x faster there than the SIMT tiles (PERF.md)
+K3_GEMV_MAX_M = 1
+_GEMV_ROWS = 8  # the most rows K1's, K2's and K3's GEMVs take
+# x values one block of K3's GEMV stages in shared memory: its rows of x
+# (1 at M = 1, else 8) times its split's rows of K (csrc/woq_w32_gemv.cu kXFloats)
+W32_GEMV_X_FLOATS = 8192
 
 
 def _tile_route(x2: torch.Tensor, M: int, group_size: int, gemv_max_m: int) -> bool:
     """Whether K1, K2 or K3 takes the tensor-core tiles: above its GEMV's
     rows, with bf16 x and a group size that is a multiple of 32."""
     return x2.dtype == torch.bfloat16 and M > gemv_max_m and group_size % 32 == 0
+
+
+@functools.lru_cache(maxsize=1024)
+def w32_k_chunk(N: int, K: int, M: int, target: int) -> int:
+    """Rows of K that one block of K3's GEMV walks (x2 (M, K), N columns).
+
+    The walk is K rounded up to 512: whole 512-row blocks of the w32 words,
+    so each 16-row span of a plane lies in one group. It is split on 512-row
+    boundaries, about equally, until the strips of 128 columns times the
+    splits reach `target` blocks or every split is one block
+    (`split_chunk`), and into at most W32_GEMV_X_FLOATS // TM rows, TM the
+    GEMV's rows (1 at M = 1, else 8), so a block's x fits in its shared
+    memory.
+    """
+    chunk = split_chunk(-(-N // _GEMV_COLS), _round_up(K, 512), 512, target)
+    return min(chunk, W32_GEMV_X_FLOATS // (1 if M == 1 else _GEMV_ROWS))
+
+
+def k3_route(x2: torch.Tensor, M: int, group_size: int) -> str:
+    """K3's kernel for x2 (M, K): "gemv" (M <= K3_GEMV_MAX_M), the
+    tensor-core "tiles" above it (bf16 x, g a multiple of 32), the GEMV again
+    up to its 8 rows for the rest (f32 x, or g not a multiple of 32), and
+    the "simt" tiles above."""
+    if M <= K3_GEMV_MAX_M:
+        return "gemv"
+    if _tile_route(x2, M, group_size, K3_GEMV_MAX_M):
+        return "tiles"
+    return "gemv" if M <= _GEMV_ROWS else "simt"
 
 
 def k1_route(x2: torch.Tensor, M: int, group_size: int) -> str:
@@ -426,9 +463,9 @@ def woq_w32_plain(
 def woq_w32_cuda(
     x2: torch.Tensor, qt: QuantizedTensor, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """Launch K3 on x2 (M, K), f32 or bf16, on a CUDA device: the GEMV at
-    M <= 8; above it the tensor-core tiles for bf16 x with g a multiple of
-    32 (both branches), else the SIMT tiles. One launch either way."""
+    """Launch K3 on x2 (M, K), f32 or bf16, on a CUDA device: the split-K
+    GEMV, the tensor-core tiles or the SIMT tiles, as `k3_route` picks. One
+    launch either way."""
     from intel_extension_for_transformers_tpu_torch.ops.kernels import (
         check,
         load_kernels,
@@ -458,28 +495,44 @@ def woq_w32_cuda(
     out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
     if M == 0 or qt.N == 0:
         return out
-    N = qt.N
-    bm, k_chunk, vec, span = 0, 0, 0, _round_up(K, g)  # bm 0: the GEMV or the SIMT tiles
-    part = counters = out  # unread
-    if _tile_route(x2, M, g, K3_GEMV_MAX_M):
-        bm, k_chunk = tile_plan(M, N, span, g, target_blocks(dev.index))
-        vec = int(K % 8 == 0 and _aligned16(x2)) + 2 * int(N % 4 == 0 and _aligned16(words))
-        part, counters = _split_workspace(dev, M, N, span, k_chunk, -(-N // _TILE_BN) * -(-M // bm), out)
-    status = load_kernels().itx_woq_w32(
-        x2.data_ptr(), words.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
-        part.data_ptr(), counters.data_ptr(),
-        M, N, K, Kp, g, int(asym), int(w32_m1_path(M, g)), bm, k_chunk, vec,
-        int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    check(status, "itx_woq_w32")
+    N, route = qt.N, k3_route(x2, M, g)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    x_bf16, out_bf16 = int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
+    splits = 1
+    if route == "gemv":
+        span = _round_up(K, 512)
+        k_chunk = w32_k_chunk(N, K, M, target_blocks(dev.index))
+        vec = int(N % 4 == 0 and _aligned16(words, scales, zeros))
+        part, counters = _split_workspace(dev, M, N, span, k_chunk, -(-N // _GEMV_COLS), out)
+        splits = -(-span // k_chunk)
+        status = load_kernels().itx_woq_w32_gemv(
+            x2.data_ptr(), words.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), M, N, K, g, int(asym), k_chunk, vec, x_bf16, out_bf16, stream)
+        name = "itx_woq_w32_gemv"
+    else:
+        bm, k_chunk, vec, part, counters = 0, 0, 0, out, out  # bm 0: the SIMT tiles, which read neither
+        if route == "tiles":
+            span = _round_up(K, g)
+            bm, k_chunk = tile_plan(M, N, span, g, target_blocks(dev.index))
+            vec = int(K % 8 == 0 and _aligned16(x2)) + 2 * int(N % 4 == 0 and _aligned16(words))
+            part, counters = _split_workspace(dev, M, N, span, k_chunk, -(-N // _TILE_BN) * -(-M // bm), out)
+        status = load_kernels().itx_woq_w32(
+            x2.data_ptr(), words.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), M, N, K, Kp, g, int(asym), int(w32_m1_path(M, g)), bm,
+            k_chunk, vec, x_bf16, out_bf16, stream)
+        name = "itx_woq_w32"
+    check(status, name)
     woq_w32_cuda.launches += 1
-    woq_w32_cuda.tile_launches += bm > 0
+    woq_w32_cuda.tile_launches += route == "tiles"
+    woq_w32_cuda.gemv_launches += route == "gemv"
+    woq_w32_cuda.split_gemv_launches += splits > 1
     return out
 
 
 woq_w32_cuda.launches = 0
 woq_w32_cuda.tile_launches = 0  # the launches of the tensor-core tiles among them
+woq_w32_cuda.gemv_launches = 0  # the launches of the split-K GEMV among them
+woq_w32_cuda.split_gemv_launches = 0  # the GEMV's launches that split K
 
 
 def woq_matmul(

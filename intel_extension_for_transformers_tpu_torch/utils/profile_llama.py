@@ -11,7 +11,8 @@ quantizes it to int4 (RTN, sym, g = 128) and runs under `torch.profiler`:
 3. the same decode on the model built again and quantized to int8 as
    `load_in_8bit` resolves it (RTN, sym, g = 128: K2);
 4. K1, K3 and K2 alone at M = 1 on the decode products with a cold L2,
-   eager and replayed from a CUDA graph (the device time alone).
+   eager and replayed from a CUDA graph (the device time alone), and the
+   column-a-lane w32 GEMV that K3's split-K GEMV replaced beside them.
 
 Device time is the sum of the kernel rows of `key_averages()` (the rows
 whose device type is CUDA; an operator's row repeats its kernels' time and
@@ -56,10 +57,12 @@ PROMPT_TOKENS = 340
 WINDOW = 2048
 # the kernel names of the port's hand-written kernels, as the profiler shows them
 # (K1: its SIMT tiles, its GEMV and its tensor-core tiles, tile_kernel<Int4Tile>;
-# K2: its GEMV, SIMT tiles and tile_kernel<Int8Tile>; K3: its GEMV, SIMT tiles
-# and tile_kernel<W32Tile>; K4: bf16 on the tensor cores, f32 SIMT)
+# K2: its GEMV, SIMT tiles and tile_kernel<Int8Tile>; K3: its split-K GEMV
+# woq_w32_gemv, told apart as "K3 gemv", then its SIMT tiles woq_w32_tiled and
+# tile_kernel<W32Tile>; K4: bf16 on the tensor cores, f32 SIMT); the first match wins
 KERNELS = {"woq_int4_kernel": "K1", "woq_int4_gemv": "K1", "Int4Tile": "K1", "woq_int8": "K2", "Int8Tile": "K2",
-           "woq_w32": "K3", "W32Tile": "K3", "flash_tc_kernel": "K4", "flash_kernel": "K4"}
+           "woq_w32_gemv": "K3 gemv", "woq_w32": "K3", "W32Tile": "K3", "flash_tc_kernel": "K4",
+           "flash_kernel": "K4"}
 
 
 def _device_us(evt) -> float:
@@ -181,8 +184,12 @@ def cold_ms(fn, x, weights, out_dtype=torch.bfloat16, calls: int = 80) -> tuple[
 def cold_gemv(dev) -> None:
     """K1 (khalf), K3 (w32) and K2 (int8) at M = 1 on the Llama-2-7B
     products, by `cold_ms` over 8 copies of the weight (>= 67 MB, more than
-    the 50 MB L2). GB/s counts the packed weight's bytes over the graph
-    time: K*N/2 for int4, K*N for int8."""
+    the 50 MB L2), with the column-a-lane w32 GEMV that K3's split-K GEMV
+    replaced beside them ("k3_colwise", a yardstick). GB/s counts the
+    packed weight's bytes over the graph time: K*N/2 for int4, K*N for
+    int8."""
+    from intel_extension_for_transformers_tpu_torch.utils.profile_woq_tiles import w32_gemv_colwise
+
     x = torch.randn(1, 11008, device=dev).to(torch.bfloat16)
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
         w = torch.randn(K, N, device=dev) * 0.02
@@ -191,8 +198,9 @@ def cold_gemv(dev) -> None:
         del w
         row = {"K": K, "N": N, "words_MB": K * N / 2 / 1e6}
         xk = x[:, :K].contiguous()
-        for name, fn, ws in (("k1", woq_int4_cuda, qts), ("k3", woq_w32_cuda, [to_decode_layout(q) for q in qts]),
-                             ("k2", woq_int8_cuda, q8s)):
+        w32s = [to_decode_layout(q) for q in qts]
+        for name, fn, ws in (("k1", woq_int4_cuda, qts), ("k3", woq_w32_cuda, w32s),
+                             ("k3_colwise", w32_gemv_colwise, w32s), ("k2", woq_int8_cuda, q8s)):
             ms, row[name + "_cold_ms"] = cold_ms(fn, xk, ws)
             row[name + "_graph_ms"] = ms
             row[name + "_GBps"] = K * N / (1 if name == "k2" else 2) / (ms * 1e-3) / 1e9

@@ -13,8 +13,12 @@ over 20 calls):
     1024, at 512 and 1024 with BM = 128 beside the planned 64
     (`K2_TILE_MAX_BM`), and the SIMT tiles (f32 x's route, and K2's bf16
     route before the tensor cores) at every M beside them;
-  * K3 (w32): the GEMV at M = 8 against the tiles at M = 8, 9 and 16; the
-    tiles at M = 16, 512 and 2048 (BM = 64 beside the planned 128 at 512 and 2048);
+  * K3 (w32): the split-K GEMV at M = 1-8 against the tiles at M = 1-16
+    (the crossover that sets `K3_GEMV_MAX_M`), with the column-a-lane GEMV
+    it replaced (`csrc/yardsticks/w32_gemv_colwise.cu`) at M = 1; f32 x at
+    M = 2-8 on the GEMV against the SIMT tiles (where f32 x goes above
+    `K3_GEMV_MAX_M`); the tiles at M = 16, 512 and 2048 (BM = 64 beside the
+    planned 128 at 512 and 2048);
   * beside each: its bound (bytes over 3.35 TB/s or operations over 989
     TFLOP/s), `torch._weight_int4pack_mm` on the same weight repacked once
     (checked within 2e-3 of the kernel's plain version first) and
@@ -32,9 +36,10 @@ the library call, which rounds each weight to bf16, is checked against the
 plain version with that rounding (K1's, on the same weight in the khalf
 layout) and its gap to K3's own plain version is reported beside it.
 
-Every row is one JSON line with the card's name and power limit.
+Every row is one JSON line with the card's name and power limit. Name
+k1, k2 or k3 (any of them) to take only those rows.
 
-    python -m intel_extension_for_transformers_tpu_torch.utils.profile_woq_tiles
+    python -m intel_extension_for_transformers_tpu_torch.utils.profile_woq_tiles [k1] [k2] [k3]
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from intel_extension_for_transformers_tpu_torch.ops.packing import (
     w32_nibbles,
 )
 from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import (
+    k3_route,
     woq_int4_cuda,
     woq_int8_cuda,
     woq_matmul_plain,
@@ -90,6 +96,26 @@ def int4pack_w32(qt) -> tuple:
 
 def int4pack_mm(x: torch.Tensor, packed: tuple, _out_dtype=None) -> torch.Tensor:
     return torch._weight_int4pack_mm(x, *packed)
+
+
+def w32_gemv_colwise(x: torch.Tensor, qt, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (1, K) bf16 . a w32 weight by the column-a-lane GEMV that K3 ran
+    at M <= 8 before its split-K GEMV (`csrc/yardsticks/`): a yardstick
+    timed beside K3, never called by the port. bf16 out."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_yardsticks
+
+    if x.shape != (1, qt.K) or x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16 or qt.layout != "w32":
+        raise ValueError("the yardstick GEMV takes one bf16 row and a w32 weight, and writes bf16")
+    x = x.contiguous()
+    asym = qt.scheme == "asym"
+    scales = qt.scales.to(torch.float32).contiguous()
+    zeros = qt.zeros.to(torch.float32).contiguous() if asym else scales
+    out = torch.empty((1, qt.N), dtype=torch.bfloat16, device=x.device)
+    status = load_yardsticks().itx_w32_gemv_colwise(
+        x.data_ptr(), qt.data.data_ptr(), scales.data_ptr(), zeros.data_ptr(), out.data_ptr(),
+        qt.N, qt.K, qt.data.shape[0] * 8, qt.group_size, int(asym), torch.cuda.current_stream().cuda_stream)
+    check(status, "itx_w32_gemv_colwise")
+    return out
 
 
 def bound_ms(M: int, K: int, N: int, qt) -> float:
@@ -220,25 +246,31 @@ def k2_rows(card: str, K: int, N: int, label: str, Ms=(1, 2, 4, 8, 9, 16, 512, 1
         print("profile_woq_tiles " + json.dumps(row), flush=True)
 
 
-def k3_rows(card: str, K: int, N: int, label: str, Ms=(1, 8, 9, 16, 512, 2048)) -> None:
+def k3_rows(card: str, K: int, N: int, label: str, Ms=(1, 2, 4, 8, 9, 16, 512, 2048)) -> None:
     gen = torch.Generator(device="cuda").manual_seed(K + N + 1)
     w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
     qts = [to_decode_layout(quantize_groupwise(w.roll(i, 0), "int4", "sym", 128)) for i in range(8)]
     del w
     qt = qts[0]
     packed = repack(lambda: int4pack_w32(qt))
+    forced = {name: dict(k3_route=lambda *a, r=name: r) for name in ("gemv", "tiles", "simt")}
     for M in Ms:
         x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
         want = woq_w32_plain(x, qt, torch.bfloat16)
         got = woq_w32_cuda(x, qt, torch.bfloat16)
         assert _rel(got, want) <= 2e-3, (label, M)
-        row = dict(kernel="K3", label=label, M=M, K=K, N=N, g=128, card=card, bound_ms=bound_ms(M, K, N, qt),
+        row = dict(kernel="K3", label=label, M=M, K=K, N=N, g=128, card=card, route=k3_route(x, M, 128),
+                   bound_ms=bound_ms(M, K, N, qt),
                    ms=events_ms(lambda: woq_w32_cuda(x, qt, torch.bfloat16), 3 if M == 2048 else 20))
-        if M <= 16:
+        if M <= 16:  # the routed kernel, then each candidate forced, by device time
             row["graph_ms"] = cold_ms(woq_w32_cuda, x, qts)[0]
-        if M <= quant_matmul.K3_GEMV_MAX_M:  # the GEMV above, the tiles forced here
-            row["tiles_ms"] = _time(woq_w32_cuda, x, qt, K3_GEMV_MAX_M=0)
-            row["tiles_graph_ms"] = _cold(woq_w32_cuda, x, qts, K3_GEMV_MAX_M=0)
+            for name in ("gemv", "tiles") if M <= 8 else ("tiles",):
+                with _Override(**forced[name]):
+                    assert _rel(woq_w32_cuda(x, qt, torch.bfloat16), want) <= 2e-3, (label, M, name)
+                row[f"{name}_graph_ms"] = _cold(woq_w32_cuda, x, qts, **forced[name])
+        if M == 1:
+            assert _rel(w32_gemv_colwise(x, qt), want) <= 2e-3, (label, "colwise")
+            row["colwise_gemv_graph_ms"] = cold_ms(w32_gemv_colwise, x, qts)[0]
         if M >= 512:
             row["tiles_bm64_ms"] = _time(woq_w32_cuda, x, qt, tile_bm=lambda m, max_bm=128: 64)
         if M in (1, 16, 2048):
@@ -251,24 +283,40 @@ def k3_rows(card: str, K: int, N: int, label: str, Ms=(1, 8, 9, 16, 512, 2048)) 
         if M in (16, 512, 2048):
             row["dequant_matmul_ms"] = dequant_matmul_ms(x, qt)
         print("profile_woq_tiles " + json.dumps(row), flush=True)
+    # f32 x at M = 2-8: the split-K GEMV against the SIMT tiles (the tensor
+    # cores take bf16 only), f32 out within K3's f32 bar
+    for M in (2, 4, 8):
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        want = woq_w32_plain(x, qt, torch.float32)
+        row = dict(kernel="K3", label=label, M=M, K=K, N=N, g=128, x="float32", card=card,
+                   route=k3_route(x, M, 128))
+        for name in ("gemv", "simt"):
+            with _Override(**forced[name]):
+                assert _rel(woq_w32_cuda(x, qt, torch.float32), want) <= 1e-4, (label, M, name)
+                row[f"{name}_graph_ms"] = cold_ms(woq_w32_cuda, x, qts, torch.float32)[0]
+        print("profile_woq_tiles " + json.dumps(row), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_woq_tiles: no CUDA device", file=sys.stderr)
         return 1
+    only = set(sys.argv[1:] if argv is None else argv) or {"k1", "k2", "k3"}
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    for K, N, label in LLAMA:
-        k1_rows(card, K, N, label)
-    k1_rows(card, 768, 100_000, "index scan", g=64, Ms=(16,), gemv_check=False)
-    k1_rows(card, 3072, 768, "bge ffn_out", Ms=(512,), gemv_check=False)
-    for K, N, label in LLAMA:
-        k2_rows(card, K, N, label)
-    for K, N, label in LLAMA + ((4096, 32000, "lm_head shape"),):
-        k3_rows(card, K, N, label)
+    if "k1" in only:
+        for K, N, label in LLAMA:
+            k1_rows(card, K, N, label)
+        k1_rows(card, 768, 100_000, "index scan", g=64, Ms=(16,), gemv_check=False)
+        k1_rows(card, 3072, 768, "bge ffn_out", Ms=(512,), gemv_check=False)
+    if "k2" in only:
+        for K, N, label in LLAMA:
+            k2_rows(card, K, N, label)
+    if "k3" in only:
+        for K, N, label in LLAMA + ((4096, 32000, "lm_head shape"),):
+            k3_rows(card, K, N, label)
     return 0
 
 

@@ -5,6 +5,8 @@ imports no jax (the machine with the card has none). Run it there with
 `python -m pytest tests/test_torch_cuda_kernels.py -m cuda -p no:cacheprovider`.
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -465,11 +467,11 @@ def test_scan_top2_tensor_cores_ties_go_to_highest_id(dev):
     (torch.bfloat16, torch.bfloat16, 2e-3),
 ])
 @pytest.mark.parametrize("scheme,M,K,N,g", [
-    ("sym", 1, 4096, 4096, 128),  # GEMV, m1
-    ("sym", 5, 1280, 300, 64),  # GEMV (M <= 8), K padded to 1536, ragged N
-    ("asym", 16, 11008, 512, 128),  # tiled, m1, Kp = 11264
-    ("sym", 200, 1024, 1000, 32),  # tiled, fold branch
-    ("asym", 48, 1152, 300, 32),  # tiled, fold branch, K padded
+    ("sym", 1, 4096, 4096, 128),  # the split-K GEMV, m1, K split 8 ways
+    ("sym", 5, 1280, 300, 64),  # bf16 x: the tensor-core tiles; f32 x: the GEMV (8 rows); K padded to 1536, ragged N
+    ("asym", 16, 11008, 512, 128),  # bf16 x: the tensor-core tiles, m1, Kp = 11264; f32 x: the SIMT tiles
+    ("sym", 200, 1024, 1000, 32),  # bf16 x: the tensor-core tiles, fold branch; f32 x: the SIMT tiles
+    ("asym", 48, 1152, 300, 32),  # bf16 x: the tensor-core tiles, fold branch, K padded; f32 x: the SIMT tiles
 ])
 def test_woq_w32_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dtype, tol):
     gen = torch.Generator(device=dev).manual_seed(M + K + N)
@@ -481,6 +483,127 @@ def test_woq_w32_kernel_matches_plain(dev, scheme, M, K, N, g, x_dtype, out_dtyp
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and got.shape == (M, N)
     assert _rel(got, want) <= tol
+
+
+def _w32(dev, K, N, g, scheme, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return packing.to_decode_layout(
+        packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, "int4", scheme, g)), gen
+
+
+def _gemv_key(dev, N):
+    return (dev, torch.cuda.current_stream().cuda_stream, -(-N // 128))
+
+
+# K3's split-K GEMV against its plain version, at the bars above, at each M
+# its kernel takes (1-8; `k3_route` sends it M <= K3_GEMV_MAX_M, and f32 x
+# or g not a multiple of 32 up to 8 rows):
+# sym and asym, g 32 / 64 / 128, f32 and bf16 x and out, K = 1280 < Kp =
+# 1536 (the walk stops at 1536 = 3 blocks of 512 rows, split 3 ways over
+# the 3 strips of N = 300, which takes 16-byte words: N % 4 == 0). Two
+# launches give the same bits and leave the strips' counters at 0.
+@pytest.mark.parametrize("x_dtype,out_dtype,tol", [
+    (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 2e-3),
+    (torch.float32, torch.bfloat16, 2e-3),
+])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("scheme", ["sym", "asym"])
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+def test_woq_w32_gemv_matches_plain(dev, monkeypatch, M, scheme, g, x_dtype, out_dtype, tol):
+    monkeypatch.setattr(quant_matmul, "K3_GEMV_MAX_M", 8)  # the GEMV at every M it takes
+    K, N = 1280, 300
+    qt, gen = _w32(dev, K, N, g, scheme, M + g)
+    x = torch.randn(M, K, device=dev, generator=gen).to(x_dtype)
+    assert -(-1536 // quant_matmul.w32_k_chunk(N, K, M, quant_matmul.target_blocks(dev.index))) == 3
+    before = quant_matmul.woq_w32_cuda.gemv_launches
+    got = quant_matmul.woq_w32_cuda(x, qt, out_dtype)
+    again = quant_matmul.woq_w32_cuda(x, qt, out_dtype)
+    want = quant_matmul.woq_w32_plain(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul.woq_w32_cuda.gemv_launches == before + 2
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert _rel(got, want) <= tol
+    assert torch.equal(got, again)
+    assert not quant_matmul._k1_counters[_gemv_key(dev, N)].any()
+
+
+# The GEMV at M = 1 (bf16 x and out, sym g128, the decode's call) over the
+# shapes and paths of its plan: the Llama-2-7B products and the lm_head
+# shape (split 8 / 4 / 11 / 2 ways), K < Kp (11008: Kp = 11264, the last
+# 512-row block half padding), N = 4100 (16-byte words, not a multiple of
+# 128) and 4102 (N % 4 != 0: 4-byte words), one split (K = 512: one block;
+# N = 34,000: 266 strips reach two blocks an SM alone), asym at a ragged N.
+@pytest.mark.parametrize("K,N,scheme,splits", [
+    (4096, 4096, "sym", 8), (4096, 11008, "sym", 4), (11008, 4096, "sym", 11), (4096, 32000, "sym", 2),
+    (1280, 4100, "sym", 3), (11008, 4102, "asym", 8), (512, 4096, "sym", 1), (1024, 34000, "sym", 1),
+    (1280, 300, "asym", 3),
+])
+def test_woq_w32_gemv_shapes_and_splits(dev, K, N, scheme, splits):
+    qt, gen = _w32(dev, K, N, 128, scheme, K + N)
+    x = torch.randn(1, K, device=dev, generator=gen).to(torch.bfloat16)
+    assert quant_matmul.k3_route(x, 1, 128) == "gemv"
+    chunk = quant_matmul.w32_k_chunk(N, K, 1, quant_matmul.target_blocks(dev.index))
+    assert -(-(-(-K // 512) * 512) // chunk) == splits
+    before = quant_matmul.woq_w32_cuda.split_gemv_launches
+    got = quant_matmul.woq_w32_cuda(x, qt, torch.bfloat16)
+    again = quant_matmul.woq_w32_cuda(x, qt, torch.bfloat16)
+    want = quant_matmul.woq_w32_plain(x, qt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert quant_matmul.woq_w32_cuda.split_gemv_launches == before + 2 * (splits > 1)
+    assert _rel(got, want) <= 2e-3
+    assert torch.equal(got, again)
+    key = _gemv_key(dev, N)
+    assert splits == 1 or not quant_matmul._k1_counters[key].any()
+
+
+# An x that starts 2 bytes past an aligned address (x is staged by element
+# loads either way), and scales that start 4 bytes past one (4-byte words
+# and scale loads, though N % 4 == 0).
+def test_woq_w32_gemv_unaligned_x_and_scales(dev):
+    K, N = 4096, 4096
+    qt, gen = _w32(dev, K, N, 128, "asym", 9)
+    base = torch.randn(1, K + 1, device=dev, generator=gen).to(torch.bfloat16)
+    x = base[:, 1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    sbase = torch.empty(qt.scales.numel() + 1, device=dev)
+    scales = sbase[1:].view_as(qt.scales).copy_(qt.scales)
+    assert scales.data_ptr() % 16
+    moved = replace(qt, scales=scales)
+    got = quant_matmul.woq_w32_cuda(x, moved, torch.float32)
+    want = quant_matmul.woq_w32_plain(x.contiguous(), qt, torch.float32)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(got, quant_matmul.woq_w32_cuda(x.contiguous(), qt, torch.float32))
+
+
+def test_woq_w32_gemv_in_a_cuda_graph(dev):
+    """The GEMV replays from a CUDA graph with the bits of an eager call,
+    once it has run on the capturing stream; a first call under a capture,
+    on a stream it has not run on, raises instead of making counters inside
+    the graph."""
+    K, N = 4096, 4096 + 128
+    qt, gen = _w32(dev, K, N, 128, "sym", 10)
+    x = torch.randn(1, K, device=dev, generator=gen).to(torch.bfloat16)
+    assert quant_matmul.k3_route(x, 1, 128) == "gemv"
+    want = quant_matmul.woq_w32_cuda(x, qt, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    quant_matmul._k1_counters.pop((x.device, side.cuda_stream, -(-N // 128)), None)
+    with pytest.raises(RuntimeError, match="capturing stream"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            quant_matmul.woq_w32_cuda(x, qt, torch.bfloat16)
+    with torch.cuda.stream(side):
+        quant_matmul.woq_w32_cuda(x, qt, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = quant_matmul.woq_w32_cuda(x, qt, torch.bfloat16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 # K4 against the plain f32 attention: unit-normal inputs, f32 scores and

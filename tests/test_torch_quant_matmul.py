@@ -189,6 +189,50 @@ def test_k1_route_by_m_dtype_and_group():
     assert tqm.k1_route(xb, 16, 16) == "simt"  # g not a multiple of 32: SIMT tiles
 
 
+@pytest.mark.parametrize("N,K,M", [
+    (4096, 4096, 1), (11008, 4096, 1), (4096, 11008, 1), (32000, 4096, 1),  # Llama decode, lm_head shape
+    (4096, 4096, 8), (4096, 11008, 8), (4100, 1280, 1), (300, 1280, 5), (4096, 512, 1),
+    (34_000, 1024, 1), (100_000, 11008, 1), (65_536, 28_672, 1), (100_000, 11008, 2),
+])
+def test_w32_k_chunk_splits_on_512_row_blocks(N, K, M):
+    """K3's split-K GEMV: K rounded up to 512 splits on 512-row blocks (whole
+    word-row blocks of the w32 layout), covers the walk with no empty split,
+    reaches two blocks an SM where K has the blocks for it (one split where
+    it has one block or the strips suffice), and keeps a block's x (1 row at
+    M = 1, else 8) within the shared memory it stages it in."""
+    span = -(-K // 512) * 512
+    chunk = tqm.w32_k_chunk(N, K, M, H100_BLOCKS)
+    splits = -(-span // chunk)
+    cap = tqm.W32_GEMV_X_FLOATS // (1 if M == 1 else 8)
+    assert chunk % 512 == 0 and 0 < chunk <= min(span, cap)
+    assert (splits - 1) * chunk < span <= splits * chunk
+    strips = -(-N // 128)
+    assert strips * splits >= H100_BLOCKS or splits == span // 512
+    assert splits == 1 or chunk in (512, cap) or strips * splits < 2 * H100_BLOCKS  # no more than it takes
+
+
+def test_w32_k_chunk_llama_plans():
+    assert tqm.w32_k_chunk(4096, 4096, 1, H100_BLOCKS) == 512  # qkvo: 32 strips x 8 splits, all K has
+    assert tqm.w32_k_chunk(11008, 4096, 1, H100_BLOCKS) == 1024  # gate/up: 86 strips x 4 splits
+    assert tqm.w32_k_chunk(4096, 11008, 1, H100_BLOCKS) == 1024  # down: 32 strips x 11 (Kp 11264)
+    assert tqm.w32_k_chunk(32000, 4096, 1, H100_BLOCKS) == 2048  # lm_head shape: 250 strips x 2
+    assert tqm.w32_k_chunk(4096, 512, 1, H100_BLOCKS) == 512  # one 512-row block: one split
+    assert tqm.w32_k_chunk(34_000, 1024, 1, H100_BLOCKS) == 1024  # 266 strips: one split
+    assert tqm.w32_k_chunk(100_000, 4096, 1, H100_BLOCKS) == 4096  # 782 strips: no split
+    assert tqm.w32_k_chunk(65_536, 28_672, 1, H100_BLOCKS) == 8192  # x of 8192 rows a block at M = 1
+    assert tqm.w32_k_chunk(100_000, 11008, 8, H100_BLOCKS) == 1024  # and of 1024 rows at 8
+
+
+def test_k3_route_by_m_dtype_and_group():
+    xb, xf = torch.zeros(16, 256, dtype=torch.bfloat16), torch.zeros(16, 256)
+    assert tqm.K3_GEMV_MAX_M == 1  # the tiles beat the GEMV from M = 2 on the card (PERF.md)
+    assert tqm.k3_route(xb, 1, 128) == tqm.k3_route(xf, 1, 128) == tqm.k3_route(xb, 1, 16) == "gemv"
+    assert tqm.k3_route(xb, 2, 128) == tqm.k3_route(xb, 8, 32) == tqm.k3_route(xb, 2048, 64) == "tiles"
+    # f32 x, or g not a multiple of 32: the GEMV up to its 8 rows, the SIMT tiles above
+    assert tqm.k3_route(xf, 2, 128) == tqm.k3_route(xf, 8, 32) == tqm.k3_route(xb, 8, 16) == "gemv"
+    assert tqm.k3_route(xf, 9, 128) == tqm.k3_route(xb, 9, 48) == tqm.k3_route(xf, 2048, 128) == "simt"
+
+
 def test_w32_on_a_cpu_tensor_never_launches_k3():
     x, _, tq = _operands(16, "int4", "sym", seed=5)
     w32 = tpk.to_decode_layout(tq)
