@@ -22,9 +22,13 @@ kernel against its plain PyTorch version on the card:
      beside their SIMT kernels, K5 beside the `torch.matmul` of its scores
      alone, and K1, K2 and K3 at M = 1 on the Llama decode products with a
      cold L2 (K1 beside K3 on the same; K3 beside the library call and the
-     column-a-lane GEMV its split-K GEMV replaced); faults
-     planted in K6's inputs (scales one group late, int4 nibbles swapped)
-     must fail the K6 bar;
+     column-a-lane GEMV its split-K GEMV replaced); K6 and K7 on 256 lists
+     of phase 7's shape (queries share lists), and K6 again on 4,096 lists
+     at phase 7's sharing (64 queries near distinct centroids: >= 450
+     distinct lists for the 512 probes), K6 beside its earlier design
+     (`profile_ivf.yardstick_scan_topk`) with each first launch and the merge
+     timed alone; faults planted in K6's inputs (scales one group late, int4
+     nibbles swapped) must fail the K6 bar;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
      cross-encoder rerank → QA prompt, over docs/ and the repository's *.md;
   4. the flat-search workload of bench.py: 100k x 768 clustered embeddings in
@@ -136,6 +140,20 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 IVF_TOL = 5e-5
 IVF_SHAPE = dict(D=768, group_size=32, L=1536, fill=1220, B=64, nprobe=8)  # phase 7's lists
 IVF_ROWS = 10_000_000
+# phase 2's K6/K7 cases: (kernel, label, plane, k or t, kwargs)
+IVF_CASES_SHARED = (
+    ("K6", "int8", 8, 10, {}),
+    ("K6", "int4", 4, 10, {}),
+    ("K6", "int8 positions", 8, 10, {"track_positions": True}),
+    ("K6", "refine hi plane r 64", "hi", 64, {"track_positions": True, "code_mult": 16, "code_offset": 8}),
+    ("K7", "refine hi plane t 24", "hi", 24, {"code_mult": 16, "code_offset": 8}),
+    ("K7", "int8 t 24", 8, 24, {}),
+)
+IVF_CASES_PHASE7 = (
+    ("K6", "int8", 8, 10, {}),
+    ("K6", "int4", 4, 10, {}),
+    ("K6", "refine hi plane r 64", "hi", 64, {"track_positions": True, "code_mult": 16, "code_offset": 8}),
+)
 # Phase 7's recall bars against the exact f32 top-10 oracle. "Reach" is the
 # share of the oracle's rows stored in a list the query probes: the most any
 # scan of the probed lists can find. The scan (int8 codes, or the int4 hi
@@ -199,50 +217,75 @@ def ivf_match(torch, got, want, tol: float = IVF_TOL):
 
 
 def ivf_bound(torch, q, codes, scales, row_ids, probes, out) -> dict:
-    """The bound of one K6/K7 call: the codes, scales, ids and centroid of
-    each list the batch probes read once, the queries, probes and outputs;
-    2 * D operations for each occupied row of each (query, distinct list)
-    pair and for the pair's base."""
+    """The bound of one K6/K7 call: what the work needs of each list the
+    batch probes, read once (the codes and scales of its occupied rows, all
+    its row ids and its centroid), the queries, probes and outputs; 2 * D
+    operations for each occupied row of each (query, distinct list) pair and
+    for the pair's base. `all_slots_bound_ms`: the earlier figure, which
+    counted the codes and scales of every slot."""
     D, L = q.shape[1], row_ids.shape[1]
-    union = torch.unique(probes).numel()
-    per_list = nbytes(codes[0], scales[0]) + 4 * L + 4 * D
+    lists = torch.unique(probes).long()
+    occupied = (row_ids >= 0).sum(1)
+    per_row = nbytes(codes[0, 0], scales[0, 0])
+    fixed = nbytes(q, probes, *out) + lists.numel() * (4 * L + 4 * D)
     srt = torch.sort(probes.long(), dim=1).values
     first = torch.ones_like(srt, dtype=torch.bool)
     first[:, 1:] = srt[:, 1:] != srt[:, :-1]
-    rows = int((row_ids >= 0).sum(1)[srt[first]].sum())
-    return bound(nbytes(q, probes, *out) + union * per_list, 2 * D * (rows + int(first.sum())), "bfloat16")
+    ops = 2 * D * (int(occupied[srt[first]].sum()) + int(first.sum()))
+    b = bound(fixed + int(occupied[lists].sum()) * per_row, ops, "bfloat16")
+    return {**b, "all_slots_bound_ms": bound(fixed + lists.numel() * L * per_row, ops, "bfloat16")["bound_ms"]}
 
 
-def ivf_kernel_cases(torch, dev, C: int = 256) -> dict:
-    """Phase 2's K6 and K7 cases on C lists of phase 7's shape (rows near
-    their list's centroid, residual norm ~0.5, the first `fill` slots used),
-    coded by the port's own codecs; then faults planted in K6's inputs.
-    → {"K6": [case, ...], "K7": [...]}."""
-    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
-    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import events_ms
+def ivf_storage(torch, dev, C: int):
+    """C lists of phase 7's shape: rows near their list's centroid (residual
+    norm ~0.5), the first `fill` slots used, coded by the port's own codecs
+    256 lists at a time. → (centroids, {8 | 4 | "hi": (codes, scales)},
+    row_ids, generator)."""
     from intel_extension_for_transformers_tpu_torch.retrieval.ivf import (
         _encode_residual,
         _encode_residual_split,
     )
 
-    D, g, L, fill, B, nprobe = (IVF_SHAPE[k] for k in ("D", "group_size", "L", "fill", "B", "nprobe"))
+    D, g, L, fill = (IVF_SHAPE[k] for k in ("D", "group_size", "L", "fill"))
     gen = torch.Generator(device=dev).manual_seed(17)
     cent = torch.nn.functional.normalize(torch.randn(C, D, generator=gen, device=dev), dim=1)
-    cent_rows = cent.repeat_interleave(L, 0)
-    rows = cent_rows + 0.5 * torch.randn(C * L, D, generator=gen, device=dev) / D**0.5
-    planes = {bits: _encode_residual(rows, cent_rows, g, bits) for bits in (8, 4)}
-    planes["hi"] = _encode_residual_split(rows, cent_rows, g)[::2]  # (hi nibbles, scales)
-    planes = {p: (c.reshape(C, L, -1), s.reshape(C, L, -1)) for p, (c, s) in planes.items()}
-    del rows, cent_rows
+    parts = {8: [], 4: [], "hi": []}
+    for c0 in range(0, C, 256):
+        cent_rows = cent[c0 : c0 + 256].repeat_interleave(L, 0)
+        rows = cent_rows + 0.5 * torch.randn(cent_rows.shape, generator=gen, device=dev) / D**0.5
+        for bits in (8, 4):
+            parts[bits].append(_encode_residual(rows, cent_rows, g, bits))
+        parts["hi"].append(_encode_residual_split(rows, cent_rows, g)[::2])  # (hi nibbles, scales)
+        del rows, cent_rows
+    planes = {p: tuple(torch.cat(t).reshape(C, L, -1) for t in zip(*chunks)) for p, chunks in parts.items()}
     row_ids = torch.arange(C * L, dtype=torch.int32, device=dev).reshape(C, L)
     row_ids[:, fill:] = -1
-    pick = torch.randint(0, C, (B,), generator=gen, device=dev)
+    return cent, planes, row_ids, gen
+
+
+def ivf_kernel_cases(torch, dev, C: int, cases, distinct: bool = False, faults: bool = False) -> dict:
+    """Phase 2's K6 and K7 cases on C lists of `ivf_storage`: B queries near
+    B centroids (drawn at random, or `distinct` ones), each case `(kernel,
+    label, plane, quota, kwargs)` against its plain version, K6 also beside
+    its earlier design (`profile_ivf.yardstick_scan_topk`) and with its scan
+    and merge timed alone; then, with `faults`, faults planted in K6's inputs.
+    → {"K6": [case, ...], "K7": [...]}."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+    from intel_extension_for_transformers_tpu_torch.utils import profile_ivf
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import events_ms
+
+    D, g, L, B, nprobe = (IVF_SHAPE[k] for k in ("D", "group_size", "L", "B", "nprobe"))
+    cent, planes, row_ids, gen = ivf_storage(torch, dev, C)
+    pick = (torch.randperm(C, generator=gen, device=dev)[:B] if distinct
+            else torch.randint(0, C, (B,), generator=gen, device=dev))
     q = torch.nn.functional.normalize(cent[pick] + 0.5 * torch.randn(B, D, generator=gen, device=dev) / D**0.5,
                                       dim=1)
     probes = torch.topk(q @ cent.T, nprobe, dim=1).indices.to(torch.int32)
+    n_lists = torch.unique(probes).numel()
+    print(f"IVF kernel cases on {C} lists: {B * nprobe} probes hit {n_lists} distinct lists")
     fns = {"K6": (ivf_scan.ivf_scan_topk_cuda, ivf_scan.ivf_scan_topk_plain, "k"),
            "K7": (ivf_scan.ivf_scan_candidates_cuda, ivf_scan.ivf_scan_candidates_plain, "t")}
-    cases = {"K6": [], "K7": []}
+    out = {"K6": [], "K7": []}
 
     def call(kernel, plane, quota, codes=None, scales=None, **kw):
         """→ (kernel output, plain output on the sound inputs, kwargs, args)."""
@@ -257,27 +300,39 @@ def ivf_kernel_cases(torch, dev, C: int = 256) -> dict:
             got, want = [(s.reshape(-1, quota), i.reshape(-1, quota)) for s, i in (got, want)]
         return got, want, kw, args
 
-    for kernel, label, plane, quota, kw in (
-        ("K6", "int8", 8, 10, {}),
-        ("K6", "int4", 4, 10, {}),
-        ("K6", "int8 positions", 8, 10, {"track_positions": True}),
-        ("K6", "refine hi plane r 64", "hi", 64, {"track_positions": True, "code_mult": 16, "code_offset": 8}),
-        ("K7", "refine hi plane t 24", "hi", 24, {"code_mult": 16, "code_offset": 8}),
-        ("K7", "int8 t 24", 8, 24, {}),
-    ):
+    for kernel, label, plane, quota, kw in cases:
         got, want, kw, args = call(kernel, plane, quota, **kw)
         diff = ivf_match(torch, got, want)
         fin = torch.isfinite(want[0])
         mabs = float((got[0][fin] - want[0][fin]).abs().max())
         cuda, plain, _ = fns[kernel]
-        ms = events_ms(lambda: cuda(*args, **kw), 20)
-        plain_ms = events_ms(lambda: plain(*args, **kw), 3, warmup=1)
-        case = dict(label=label, C=C, L=L, D=D, g=g, B=B, nprobe=nprobe, **kw, max_abs_err=mabs,
-                    ms=ms, plain_ms=plain_ms,
-                    **ivf_bound(torch, q, args[2], args[3], row_ids, probes, got))
+        case = dict(label=label, C=C, L=L, D=D, g=g, B=B, nprobe=nprobe, distinct_lists=n_lists, **kw,
+                    max_abs_err=mabs, ms=events_ms(lambda: cuda(*args, **kw), 20))
+        if kernel == "K6":
+            yard = profile_ivf.yardstick_scan_topk(*args, **kw)
+            case["yardstick_max_abs_err"] = float((yard[0][fin] - want[0][fin]).abs().max())
+            case["yardstick_ms"] = events_ms(lambda: profile_ivf.yardstick_scan_topk(*args, **kw), 20)
+            # the first launch of each design alone, and K6's merge alone
+            scan_kw = dict(track_positions=False, code_mult=1, code_offset=0)
+            scan_kw.update({key: val for key, val in kw.items() if key in scan_kw or key in ("bits", "group_size")})
+            csims = q @ cent.T
+            storage = (q, args[2], args[3], row_ids)
+            lists, base = profile_ivf.yardstick_lists(q, cent, probes)
+            s1, i1 = ivf_scan._k6_scan(*storage, probes, csims, k=quota, **scan_kw)
+            s1, i1 = s1.flatten(1), i1.flatten(1)
+            case["scan_ms"] = events_ms(lambda: ivf_scan._k6_scan(*storage, probes, csims, k=quota, **scan_kw), 20)
+            case["yardstick_scan_ms"] = events_ms(
+                lambda: ivf_scan._launch_scan(*storage, lists, base, k=quota, **scan_kw), 20)
+            case["merge_ms"] = events_ms(lambda: ivf_scan._merge_topk(s1, i1, quota), 20)
+        case["plain_ms"] = events_ms(lambda: plain(*args, **kw), 3, warmup=1)
+        case.update(ivf_bound(torch, q, args[2], args[3], row_ids, probes, got))
         print(f"{kernel} " + json.dumps(case))
         check(diff is None, f"{kernel} {label} against its plain version: {diff}")
-        cases[kernel].append(case)
+        if kernel == "K6":
+            check(ivf_match(torch, yard, want) is None, f"the earlier design of K6, {label}, against the plain version")
+        out[kernel].append(case)
+    if distinct:
+        check(n_lists >= 450, f"the probes of the sharing case hit at least 450 distinct lists ({n_lists})")
 
     def swap_nibbles(codes):
         p = codes.to(torch.int32) & 0xFF
@@ -287,12 +342,12 @@ def ivf_kernel_cases(torch, dev, C: int = 256) -> dict:
     for what, plane, faulty in (
         ("scales one group late", 8, dict(scales=torch.roll(planes[8][1], 1, dims=2))),
         ("int4 nibbles of each byte swapped", 4, dict(codes=swap_nibbles(planes[4][0]))),
-    ):
+    ) if faults else ():
         got, want, _, _ = call("K6", plane, 10, **faulty)
         diff = ivf_match(torch, got, want)
         print(f"planted fault, K6 {what}: {diff or 'within the bar'}")
         check(diff is not None, f"the K6 bar rejects the planted fault: {what}")
-    return cases
+    return out
 
 
 def ivf_phase(torch, dev, n: int) -> None:
@@ -815,7 +870,11 @@ def main() -> int:
     k4_case("head dim 64", 1, 2048, 2048, 32, 32, 64, True, 0, bf16)
     torch.cuda.empty_cache()
 
-    ivf_cases = ivf_kernel_cases(torch, dev)
+    # C = 256: heavy list sharing across the batch, K7's cases and the
+    # planted faults; C = 4096, 64 distinct picks: phase 7's sharing
+    ivf_cases = ivf_kernel_cases(torch, dev, 256, IVF_CASES_SHARED, faults=True)
+    torch.cuda.empty_cache()
+    ivf_k6_phase7 = ivf_kernel_cases(torch, dev, 4096, IVF_CASES_PHASE7, distinct=True)["K6"]
     torch.cuda.empty_cache()
 
     launches = {"woq_int4": 0, "woq_int8": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0,
@@ -1376,7 +1435,7 @@ def main() -> int:
     k1_tiles = next(c for c in k1_cases if c["label"] == "llama qkvo" and c["M"] == 512)
     shown = ("M", "K", "N", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k4_window = next(c for c in k4_cases if c["label"] == "llama-2-7b window" and c["dtype"] == "bfloat16")
-    k6_int8 = ivf_cases["K6"][0]
+    k6_int8 = ivf_k6_phase7[0]
     k7_hi = ivf_cases["K7"][0]
 
     def row(name, source, replaces, cases, shown):
@@ -1407,7 +1466,9 @@ def main() -> int:
                                                                "bound_ms", "bound_by", "library_ms", "colwise_gemv_ms")}
                          for c in k3_cases if c["label"].endswith("L2-cold")}},
         row("flash_attention", "flash_attention.cu", "flash_attention.py:38", k4_cases, k4_window),
-        row("ivf_scan_topk", "ivf_scan.cu", "ivf_scan.py:178", ivf_cases["K6"], k6_int8),
+        {**row("ivf_scan_topk", "ivf_scan_topk.cu", "ivf_scan.py:178", ivf_cases["K6"] + ivf_k6_phase7, k6_int8),
+         "case": {key: k6_int8[key] for key in ("label", "C", "distinct_lists", "k", "scan_ms", "merge_ms")},
+         "yardstick_ms": k6_int8["yardstick_ms"], "yardstick_scan_ms": k6_int8["yardstick_scan_ms"]},
         row("ivf_scan_candidates", "ivf_scan.cu", "ivf_scan.py:511", ivf_cases["K7"], k7_hi),
     ]}
     print(json.dumps(summary))

@@ -1,8 +1,11 @@
-// K6 and K7: IVF scans over packed residual lists (sm_90a).
+// K7 and K6's merge: IVF scans over packed residual lists (sm_90a).
 //
-// K6 replaces intel_extension_for_transformers_tpu/ops/ivf_scan.py
-// ::_ivf_scan_kernel (:178, launched by ivf_scan_topk); K7 replaces
-// ::_ivf_candidates_kernel (:511, launched by ivf_scan_candidates).
+// K7 replaces intel_extension_for_transformers_tpu/ops/ivf_scan.py
+// ::_ivf_candidates_kernel (:511, launched by ivf_scan_candidates). K6
+// (::_ivf_scan_kernel) is ivf_scan_topk.cu; it ends in
+// itx_ivf_merge_topk below. itx_ivf_scan_lists with a base and the merge is
+// K6's earlier design, which utils/profile_ivf.py times beside it; the port
+// calls it for K7 only.
 //
 // A list is L rows of W bytes of codes (int8, or two int4 per byte: column
 // 2w in the low nibble of byte w, 2w+1 in the high one), G bf16 group scales
@@ -16,11 +19,11 @@
 // 4 int8 or 8 int4 columns each; the query sits in shared memory as f32),
 // and merges each tile into a best-first top-k kept in shared memory by a
 // bitonic sort of the k best so far and the tile, skipped when no row of the
-// tile beats the k-th. A slot whose list is -1 writes (-inf, -1) only: K6's
-// wrapper sets a query's repeated probes to -1, so a list counts once. K6
-// calls it with the base and ids, then itx_ivf_merge_topk (one block per
-// query, the same tile merge) reduces each query's nprobe * k candidates to
-// its top k. K7 calls it with no base and flat storage positions as ids.
+// tile beats the k-th. A slot whose list is -1 writes (-inf, -1) only. K7
+// calls it with no base and flat storage positions as ids; with the base, a
+// query's repeated probes set to -1, and then itx_ivf_merge_topk (one block
+// per query, the same tile merge) over each query's candidates, it is K6's
+// earlier design.
 //
 // Bound on the H100: the bytes of the probed lists' codes, scales and row
 // ids (a 1536-row int8 list of dim 768 is 1.26 MB). Each block streams its

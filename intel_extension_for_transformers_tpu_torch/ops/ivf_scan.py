@@ -10,9 +10,16 @@ empty). A row's score against a query is
 
 where the residual is rounded to bf16 as the JAX package's decode does, and
 the refine tier's hi-nibble plane decodes `code` as `16·hi + 8`
-(`code_mult`, `code_offset`). K6 (`csrc/ivf_scan.cu`) reads each probed
-list once per query, decodes and scores it in registers and keeps the top-k
-in shared memory; no (B, nprobe·L, D) decode ever reaches device memory.
+(`code_mult`, `code_offset`). K6 (`csrc/ivf_scan_topk.cu`) streams each
+(query, distinct probed list) once as a GEMV of 16-byte words, decodes bf16
+pairs in registers, keeps the list's scores in shared memory and selects its
+top-k once; `itx_ivf_merge_topk` then ranks each query's candidates. K7
+(`csrc/ivf_scan.cu`) scores a list a warp a row and keeps each probe slot's
+top-t by a sort a tile. No (B, nprobe·L, D) decode ever reaches device
+memory. On the card K6 takes rows of whole 4-byte words (`k6_plan`: 16-byte
+words and a scale a word where the groups allow, 4-byte words and a scale a
+value where not) and the codes `k6_check_codes` accepts, and raises for
+others.
 
 The contract is the JAX package's:
 
@@ -42,11 +49,18 @@ tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
+    "K6Plan",
     "choose_blocking",
     "decode_residual",
+    "k6_check_codes",
+    "k6_plan",
+    "k6_splits",
     "ivf_scan_topk",
     "ivf_scan_topk_plain",
     "ivf_scan_topk_cuda",
@@ -55,10 +69,98 @@ __all__ = [
     "ivf_scan_candidates_cuda",
 ]
 
-MAX_K = 256  # the kernels' top-k lives in 2^ceil(log2(k + 256)) shared-memory slots
-_TILE = 256  # list rows the kernels score between two merges (csrc/ivf_scan.cu kTile)
-_SMEM_LIMIT = 48 * 1024  # static launch limit: D·4 + slots·8 bytes
+MAX_K = 256  # the merge's top-k lives in 2^ceil(log2(k + 256)) shared-memory slots
+_TILE = 256  # candidates the sort-a-tile kernels take between two merges (csrc/ivf_scan.cu kTile)
+_SMEM_LIMIT = 48 * 1024  # static launch limit: D·4 + slots·8 bytes (K7); K6's default
 _PLAIN_ELEMENTS = 1 << 27  # decoded elements per query block in the plain versions
+K6_MAX_SPLIT_ROWS = 2048  # list rows one K6 block takes (csrc/ivf_scan_topk.cu kMaxSplitRows)
+K6_SMEM_OPTIN = 224 * 1024  # K6's shared memory where q and its tables pass the default (H100: 227 KB a block)
+# 16-byte (wide) or 4-byte words a K6 lane takes a pass (csrc/ivf_scan_topk.cu Words::kWPL)
+K6_WORDS_PER_LANE = {True: 3, False: 4}
+
+
+class K6Plan(NamedTuple):
+    """How K6's lanes cover a row of `words` words of `values_per_word`
+    codes: `lanes_per_row` lanes (a power of two, at most a warp) take
+    `words_per_lane` words a pass, word `p·lanes·words_per_lane + lane +
+    lanes·j` in pass p, in `passes` passes; words past the row's end are
+    masked. `wide`: 16-byte words, each inside one scale group; otherwise
+    4-byte words with a scale for each value."""
+
+    wide: bool
+    lanes_per_row: int
+    words_per_lane: int
+    passes: int
+    words: int
+    values_per_word: int
+
+
+@functools.lru_cache(maxsize=None)
+def k6_plan(D: int, bits: int, group_size: int, aligned: bool = True) -> K6Plan:
+    """→ K6's lane plan for rows of dim `D`: 16-byte words where the row is
+    whole ones, `aligned` (the storage is 16-byte aligned) and each lies in
+    one group of `group_size`; 4-byte words otherwise. Raises for a shape the
+    kernel cannot take: other than 4- or 8-bit codes, groups that do not
+    divide the row, rows that are not whole 4-byte words."""
+    if bits not in (4, 8):
+        raise ValueError(f"K6 takes 4- or 8-bit codes, got {bits}")
+    if group_size < 1 or D % group_size:
+        raise ValueError(f"groups of {group_size} do not divide rows of dim {D}")
+    row_bytes = D * bits // 8
+    wide = aligned and row_bytes % 16 == 0 and group_size % (128 // bits) == 0
+    if row_bytes % 4:
+        raise ValueError(f"rows of {row_bytes} bytes are not whole 4-byte words of {bits}-bit codes")
+    vpw = (128 if wide else 32) // bits
+    words = D // vpw
+    per_lane = K6_WORDS_PER_LANE[wide]
+    lanes = min(32, 1 << (-(-words // per_lane) - 1).bit_length())
+    return K6Plan(wide, lanes, per_lane, -(-words // (lanes * per_lane)), words, vpw)
+
+
+def k6_smem(plan: K6Plan, split_rows: int) -> int:
+    """Bytes of K6's dynamic shared memory (csrc/ivf_scan_topk.cu
+    smem_bytes): q in odd blocks of float4s a (pass, lane), a group a word,
+    a group a value (4-byte words), then a score, id and slot a row."""
+    blocks = plan.passes * plan.lanes_per_row
+    q4 = blocks * (plan.words_per_lane * plan.values_per_word // 4 + 1)
+    return q4 * 16 + blocks * plan.words_per_lane * 4 + (0 if plan.wide else q4 * 8) + 12 * split_rows
+
+
+@functools.lru_cache(maxsize=None)
+def k6_splits(L: int, plan: K6Plan) -> tuple[int, int]:
+    """→ (row ranges a list, rows a range): a list of L rows is split into
+    the fewest ranges of at most K6_MAX_SPLIT_ROWS whose scores fit beside q
+    in the default shared memory (in K6_SMEM_OPTIN where q and its tables
+    leave no room for 512 rows there), as even as they go."""
+    fixed = k6_smem(plan, 0)
+    budget = _SMEM_LIMIT if fixed + 12 * min(L, 512) <= _SMEM_LIMIT else K6_SMEM_OPTIN
+    cap = min(K6_MAX_SPLIT_ROWS, (budget - fixed) // 12)
+    if cap < 1:
+        raise ValueError(f"K6's q and tables for rows of {plan.words} words pass {budget} bytes of shared memory")
+    splits = max(1, -(-L // cap))
+    return splits, -(-L // splits)
+
+
+def _bf16_exact(v: int) -> bool:
+    v = abs(v)
+    while v and v % 2 == 0:
+        v //= 2
+    return v < 256
+
+
+@functools.lru_cache(maxsize=None)
+def k6_check_codes(bits: int, code_mult: int, code_offset: int) -> None:
+    """Raise unless K6's decode is exact for these codes: `code_mult` a
+    power of two and `code_offset` 0 or ± a power of two (so mult·s and
+    offset·s are exact bf16), and every code·mult + offset exact in bf16,
+    as the JAX decode takes it."""
+    def pow2(v):
+        return v > 0 and v & (v - 1) == 0
+
+    lo = -(1 << (bits - 1))
+    if not (pow2(code_mult) and (code_offset == 0 or pow2(abs(code_offset)))
+            and all(_bf16_exact(c * code_mult + code_offset) for c in range(lo, -lo))):
+        raise ValueError(f"K6 decodes code·{code_mult} + {code_offset} of {bits}-bit codes inexactly")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -229,14 +331,10 @@ def _add_base(s, pos, csims, probes):
     return s.flatten(1), pos.flatten(1).to(torch.int32)
 
 
-def _launch_scan(q, packed, scales, row_ids, lists, base, *, k, bits, group_size,
-                 track_positions, code_mult, code_offset):
-    """Pass 1 of K6 and all of K7 → (B, nprobe, k) best-first (score, id)."""
-    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
-
-    B, D = q.shape
-    C, L, W = packed.shape
-    nprobe = lists.shape[1]
+def _cuda_inputs(q, packed, scales, row_ids, lists, k):
+    """The checks both kernels share → (bf16 q, packed, scales, row_ids,
+    int32 lists), contiguous."""
+    L = packed.shape[1]
     dev = q.device
     for name, t in (("centroids/packed", packed), ("scales", scales), ("row_ids", row_ids), ("probes", lists)):
         if t.device != dev:
@@ -247,18 +345,31 @@ def _launch_scan(q, packed, scales, row_ids, lists, base, *, k, bits, group_size
         raise ValueError("packed must be int8, scales bfloat16 and row_ids int32")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k = {k} is outside 1..{MAX_K}")
+    if packed.shape[0] * L >= 2**31:
+        raise ValueError("storage positions must fit in int32")
+    return (q.to(torch.bfloat16).contiguous(), packed.contiguous(), scales.contiguous(), row_ids.contiguous(),
+            lists.to(torch.int32).contiguous())
+
+
+def _launch_scan(q, packed, scales, row_ids, lists, base, *, k, bits, group_size,
+                 track_positions, code_mult, code_offset):
+    """All of K7 (`itx_ivf_scan_lists`, no base) → (B, nprobe, k) best-first
+    (score, id). With a base and `_merge_topk` it is also the earlier design
+    of K6, which `utils/profile_ivf.py` times beside K6; K6 never calls it."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
+
+    B, D = q.shape
+    W = packed.shape[2]
+    L = packed.shape[1]
+    nprobe = lists.shape[1]
+    qb, packed, scales, row_ids, lists = _cuda_inputs(q, packed, scales, row_ids, lists, k)
     if W % 4 or packed.data_ptr() % 4:
         raise ValueError(f"packed rows of {W} bytes are not whole, aligned 32-bit words")
     slots = 1 << (k + _TILE - 1).bit_length()
     if 4 * D + 8 * slots > _SMEM_LIMIT:
         raise ValueError(f"dim {D} with k = {k} needs more than {_SMEM_LIMIT} bytes of shared memory")
-    if C * L >= 2**31:
-        raise ValueError("storage positions must fit in int32")
-    qb = q.to(torch.bfloat16).contiguous()
-    packed, scales, row_ids = packed.contiguous(), scales.contiguous(), row_ids.contiguous()
-    lists = lists.to(torch.int32).contiguous()
-    out_s = torch.empty((B, nprobe, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, nprobe, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((B, nprobe, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, nprobe, k), dtype=torch.int32, device=q.device)
     if B * nprobe == 0:
         return out_s, out_i
     status = load_kernels().itx_ivf_scan_lists(
@@ -266,37 +377,77 @@ def _launch_scan(q, packed, scales, row_ids, lists, base, *, k, bits, group_size
         lists.data_ptr(), None if base is None else base.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), B, nprobe, D, L, D // group_size, group_size,
         bits, k, code_mult, code_offset, int(track_positions),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(status, "itx_ivf_scan_lists")
+    return out_s, out_i
+
+
+def _k6_scan(q, packed, scales, row_ids, probes, csims, *, k, bits, group_size,
+             track_positions, code_mult, code_offset):
+    """K6's first launch (`itx_ivf_scan_topk`): one block per (query,
+    probe slot, row range) → (B, nprobe·splits, k) candidates, each range's
+    k best unordered, (-inf, -1) where a range has fewer; a slot whose list
+    the query probed at an earlier slot gives only those. csims: (B, C) f32
+    q·centroid, the base of each list."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
+
+    B, D = q.shape
+    C, L = packed.shape[:2]
+    nprobe = probes.shape[1]
+    qb, packed, scales, row_ids, probes = _cuda_inputs(q, packed, scales, row_ids, probes, k)
+    if packed.data_ptr() % 4:
+        raise ValueError("K6 reads packed rows as 4- or 16-byte words: the storage must be 4-byte aligned")
+    plan = k6_plan(D, bits, group_size, packed.data_ptr() % 16 == 0)
+    k6_check_codes(bits, code_mult, code_offset)
+    splits, split_rows = k6_splits(L, plan)
+    if csims.shape != (B, C) or csims.dtype != torch.float32 or not csims.is_contiguous():
+        raise ValueError(f"csims must be ({B}, {C}) contiguous float32")
+    out_s = torch.empty((B, nprobe * splits, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, nprobe * splits, k), dtype=torch.int32, device=q.device)
+    if B * nprobe == 0:
+        return out_s, out_i
+    status = load_kernels().itx_ivf_scan_topk(
+        qb.data_ptr(), packed.data_ptr(), scales.data_ptr(), row_ids.data_ptr(), probes.data_ptr(),
+        csims.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, C, nprobe, D, L, D // group_size,
+        group_size, bits, k, int(plan.wide), plan.lanes_per_row, plan.words_per_lane, plan.passes, splits,
+        split_rows, code_mult, code_offset, int(track_positions), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(status, "itx_ivf_scan_topk")
+    return out_s, out_i
+
+
+def _merge_topk(s1, i1, k):
+    """(B, R) candidates → (B, k) best first, (-inf, -1) past the last:
+    `itx_ivf_merge_topk`, one block per query."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
+
+    B, R = s1.shape
+    out_s = torch.empty((B, k), dtype=torch.float32, device=s1.device)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=s1.device)
+    if B and R:
+        status = load_kernels().itx_ivf_merge_topk(
+            s1.data_ptr(), i1.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, R, k,
+            torch.cuda.current_stream(s1.device).cuda_stream,
+        )
+        check(status, "itx_ivf_merge_topk")
     return out_s, out_i
 
 
 def ivf_scan_topk_cuda(q, centroids, packed, scales, row_ids, probes, *, k: int, bits: int,
                        group_size: int, l_blk: int, track_positions: bool = False,
                        code_mult: int = 1, code_offset: int = 0):
-    """Launch K6 on CUDA tensors: one block per (query, distinct probed list)
-    keeps that list's top-k, then one block per query merges them."""
-    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
-
+    """Launch K6 on CUDA tensors: one block per (query, distinct probed
+    list, row range) keeps that range's top-k (`_k6_scan`), then one block
+    per query merges them (`_merge_topk`)."""
     _check_storage(q, packed, scales, row_ids, probes, bits, group_size, l_blk)
     csims = q.to(torch.float32) @ centroids.to(torch.float32).T
-    lists = _dedup_probes(probes)
-    base = torch.gather(csims, 1, lists.clamp_min(0)).contiguous()
-    s1, i1 = _launch_scan(q, packed, scales, row_ids, lists, base, k=k, bits=bits,
-                          group_size=group_size, track_positions=track_positions,
-                          code_mult=code_mult, code_offset=code_offset)
-    B, R = s1.shape[0], s1.shape[1] * k
-    out_s = torch.empty((B, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
-    if B and R:
-        status = load_kernels().itx_ivf_merge_topk(
-            s1.data_ptr(), i1.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, R, k,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-        check(status, "itx_ivf_merge_topk")
+    s1, i1 = _k6_scan(q, packed, scales, row_ids, probes, csims, k=k, bits=bits, group_size=group_size,
+                      track_positions=track_positions, code_mult=code_mult, code_offset=code_offset)
+    out = _merge_topk(s1.flatten(1), i1.flatten(1), k)
+    if s1.numel():
         ivf_scan_topk_cuda.launches += 1
-    return out_s, out_i
+    return out
 
 
 ivf_scan_topk_cuda.launches = 0

@@ -53,6 +53,10 @@ _SIGNATURES = {
     # q, packed, scales, row_ids, lists, base, out_s, out_i, B, nprobe, D, L,
     # G, group_size, bits, k, code_mult, code_offset, track_positions, stream
     "itx_ivf_scan_lists": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, packed, scales, row_ids, probes, csims, out_s, out_i, B, C, nprobe,
+    # D, L, G, group_size, bits, k, wide, lanes_per_row, words_per_lane,
+    # passes, splits, split_rows, code_mult, code_offset, track_positions, stream
+    "itx_ivf_scan_topk": (_P, _P, _P, _P, _P, _P, _P, _P) + (_I,) * 18 + (_P,),
     # in_s, in_i, out_s, out_i, B, R, k, stream
     "itx_ivf_merge_topk": (_P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -17,13 +17,18 @@ first freed before the second is built:
 Each search mode runs `IVFIndex.search` on 64 queries under
 `torch.profiler`. Device time is the sum of the kernel rows of
 `key_averages()` (an operator's row repeats its kernels' time and is left
-out); busy / wall is the device's busy share. Prints one JSON line per
+out), by kernel under the names of `KERNELS` (the port's kernels; the
+rest is "other"); busy / wall is the device's busy share. Prints one JSON line per
 mode, with the card's name and power limit first. Then, for each mode at
 nprobe 8, 16 and 32, recall@10 against the exact f32 top-10 oracle and
 where the oracle's rows sit (dropped at insert, in an unprobed list, in a
 probed one).
 
     python -m intel_extension_for_transformers_tpu_torch.utils.profile_ivf [--n 10000000]
+
+To hold two trees against each other, run this file from one tree with
+each tree's root first on PYTHONPATH, in turns (A B B A ...): the script
+then drives that tree's index and kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
 from intel_extension_for_transformers_tpu_torch.retrieval import (
     IVFIndex,
     clustered_embeddings_device,
@@ -60,8 +66,31 @@ KINDS = {
                     {"k7_t24": dict(k=10, nprobe=8, rescore_t=24),
                      "k6_r64": dict(k=10, nprobe=8, rescore_r=64)}),
 }
+RUNS = 20  # searches behind each unprofiled mean
 # kernel names of the port's hand-written kernels, as the profiler shows them
-KERNELS = {"ivf_scan_lists": "scan (K6 pass 1 / K7)", "ivf_merge_topk": "K6 merge"}
+KERNELS = {"ivf_topk_kernel": "K6 scan", "ivf_merge_topk": "K6 merge", "ivf_scan_lists": "K7 scan"}
+
+
+def yardstick_lists(q, centroids, probes):
+    """The inputs of K6's earlier design: each query's probes sorted, repeats set to
+    -1 (that kernel skips a slot of -1), and their q·centroid bases."""
+    csims = q.to(torch.float32) @ centroids.to(torch.float32).T
+    lists = ivf_scan._dedup_probes(probes)
+    return lists, torch.gather(csims, 1, lists.clamp_min(0)).contiguous()
+
+
+def yardstick_scan_topk(q, centroids, packed, scales, row_ids, probes, *, k: int, bits: int, group_size: int,
+                        l_blk: int, track_positions: bool = False, code_mult: int = 1, code_offset: int = 0):
+    """The whole K6 call as its earlier design made it, a yardstick timed
+    beside K6 (the port never calls it): deduplicated probes and their
+    bases, `itx_ivf_scan_lists` (a warp a row, 32-bit words, a bitonic sort
+    of the top-k after each 256-row tile), then the same merge."""
+    ivf_scan._check_storage(q, packed, scales, row_ids, probes, bits, group_size, l_blk)
+    lists, base = yardstick_lists(q, centroids, probes)
+    s1, i1 = ivf_scan._launch_scan(q, packed, scales, row_ids, lists, base, k=k, bits=bits,
+                                   group_size=group_size, track_positions=track_positions,
+                                   code_mult=code_mult, code_offset=code_offset)
+    return ivf_scan._merge_topk(s1.flatten(1), i1.flatten(1), k)
 
 
 def corpus(n: int, dev, n_queries: int = BATCH):
@@ -135,14 +164,21 @@ def _device_us(evt) -> float:
 
 
 def profile_search(idx: IVFIndex, queries: torch.Tensor, name: str, kw: dict, reps: int = 5) -> dict:
-    """One search mode under the profiler → per-batch wall, device busy
-    time and share, and device time by kernel."""
-    idx.search(queries, **kw)  # warm-up
+    """One search mode → per-batch wall without the profiler (the median of
+    `reps` means over RUNS searches each; the host's share of a batch
+    varies from run to run), then under the profiler device busy time and
+    share, and device time by kernel."""
+    for _ in range(3):  # warm-up
+        idx.search(queries, **kw)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    walls = []
     for _ in range(reps):
-        idx.search(queries, **kw)  # returns numpy: ends in the copy to the host
-    ms_unprofiled = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(RUNS):
+            idx.search(queries, **kw)  # returns numpy: ends in the copy to the host
+        walls.append((time.perf_counter() - t0) * 1e3 / RUNS)
+    walls.sort()
+    ms_unprofiled = walls[reps // 2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -159,6 +195,7 @@ def profile_search(idx: IVFIndex, queries: torch.Tensor, name: str, kw: dict, re
     rec = {
         "mode": name, **kw, "batch": queries.shape[0],
         "ms_per_batch_unprofiled": ms_unprofiled,
+        "ms_per_batch_unprofiled_means": walls,
         "ms_per_batch_profiled": wall_us / 1e3 / reps,
         "device_busy_ms_per_batch": busy_us / 1e3 / reps,
         "device_busy_share": busy_us / wall_us,

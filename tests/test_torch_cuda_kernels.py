@@ -655,7 +655,7 @@ def test_flash_attention_kernel_rejects_unsupported_head_dim(dev):
         flash_attention.flash_attention_cuda(q, q, q)
 
 
-def _ivf_storage(dev, C, D, L_pad, fill_rows, bits, seed):
+def _ivf_storage(dev, C, D, L_pad, fill_rows, bits, seed, group_size=32):
     """Packed IVF lists on the card: `fill_rows` coded residual rows per list
     (-1 ids after them), from the port's own codec."""
     from intel_extension_for_transformers_tpu_torch.retrieval.ivf import _encode_residual
@@ -663,7 +663,7 @@ def _ivf_storage(dev, C, D, L_pad, fill_rows, bits, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     cent = torch.nn.functional.normalize(torch.randn(C, D, generator=gen, device=dev), dim=1)
     v = cent.repeat_interleave(L_pad, 0) + 0.3 * torch.randn(C * L_pad, D, generator=gen, device=dev) / D**0.5
-    codes, scales = _encode_residual(v, cent.repeat_interleave(L_pad, 0), 32, bits)
+    codes, scales = _encode_residual(v, cent.repeat_interleave(L_pad, 0), group_size, bits)
     rid = torch.arange(C * L_pad, device=dev, dtype=torch.int32).reshape(C, L_pad)
     rid[:, fill_rows:] = -1
     return cent, codes.reshape(C, L_pad, -1), scales.reshape(C, L_pad, -1), rid
@@ -753,6 +753,152 @@ def test_ivf_scan_kernel_rejects_a_shifted_scale_plane(dev):
     want = ivf_scan.ivf_scan_topk_plain(q, cent, packed, scales, rid, probes, **kw)
     with pytest.raises(AssertionError):
         _assert_ivf_match(got, want, IVF_TOL)
+
+
+def _ivf_k6_case(dev, C, D, L_pad, fill_rows, bits, B, nprobe, seed, *, scatter=False, empty_lists=0,
+                 distinct=False):
+    """Storage and probes for one K6 case on the card: empty slots after
+    `fill_rows` (or, with `scatter`, ~40% of them anywhere in a list), the
+    first `empty_lists` lists with no occupied row (probed by every query),
+    each query probing its first list three times; `distinct`: instead, the
+    B * nprobe probes are all different lists."""
+    cent, packed, scales, rid = _ivf_storage(dev, C, D, L_pad, fill_rows if not scatter else L_pad, bits, seed)
+    if scatter:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rid = torch.where(torch.rand(rid.shape, generator=gen, device=dev) < 0.6, rid, -1)
+    rid[:empty_lists] = -1
+    q, probes = _ivf_queries(dev, cent, B, nprobe, seed)
+    if distinct:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        probes = torch.randperm(C, generator=gen, device=dev)[: B * nprobe].reshape(B, nprobe).to(torch.int32)
+    else:
+        probes[:, 1] = probes[:, 0]  # a list probed twice counts once
+    if empty_lists:
+        probes[:, 2] = torch.arange(B, device=dev, dtype=torch.int32) % empty_lists
+    return q, cent, packed, scales, rid, probes
+
+
+_HI_PLANE = dict(track_positions=True, code_mult=16, code_offset=8)
+
+
+@pytest.mark.parametrize("case,bits,k,C,D,L_pad,fill_rows,B,nprobe,extra", [
+    ("k 1", 4, 1, 64, 768, 1536, 1220, 64, 8, {}),
+    ("k 256", 8, 256, 64, 768, 1536, 1220, 64, 8, {}),
+    ("k 256 hi plane", 4, 256, 64, 768, 1536, 1220, 64, 8, _HI_PLANE),
+    ("L 3072: two row ranges", 8, 10, 16, 768, 3072, 2900, 16, 4, {}),
+    ("L 3072: two row ranges, k 256", 4, 256, 16, 768, 3072, 3000, 16, 4, {"track_positions": True}),
+    ("D 128", 8, 10, 32, 128, 512, 400, 16, 4, {}),
+    ("D 128", 4, 10, 32, 128, 512, 400, 16, 4, _HI_PLANE),
+    ("D 1024", 8, 10, 32, 1024, 512, 400, 16, 4, {}),
+    ("D 1024", 4, 64, 32, 1024, 512, 400, 16, 4, {}),
+    ("lists with no occupied row", 8, 10, 32, 768, 1536, 1220, 16, 4, {"empty_lists": 3}),
+    ("empty slots scattered in a list", 8, 10, 32, 768, 1536, 1536, 16, 4, {"scatter": True}),
+    ("empty slots scattered in a list", 4, 200, 32, 768, 1536, 1536, 16, 4, {"scatter": True}),
+    ("512 distinct lists", 8, 10, 512, 768, 1536, 1220, 64, 8, {"distinct": True}),
+    ("512 distinct lists", 4, 64, 512, 768, 1536, 1220, 64, 8, {"distinct": True, **_HI_PLANE}),
+])
+def test_ivf_scan_topk_kernel_shapes(dev, case, bits, k, C, D, L_pad, fill_rows, B, nprobe, extra):
+    """K6 (`csrc/ivf_scan_topk.cu`) at the edges of its plan: k at both
+    ends, lists split into row ranges, other lane plans, lists with no row,
+    repeated probes, scattered empty slots, one list a probe."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    kw = {key: extra[key] for key in ("track_positions", "code_mult", "code_offset") if key in extra}
+    built = {key: extra[key] for key in ("scatter", "empty_lists", "distinct") if key in extra}
+    q, cent, packed, scales, rid, probes = _ivf_k6_case(dev, C, D, L_pad, fill_rows, bits, B, nprobe,
+                                                        seed=C + D + k, **built)
+    kw = dict(k=k, bits=bits, group_size=32, l_blk=L_pad, **kw)
+    got = ivf_scan.ivf_scan_topk_cuda(q, cent, packed, scales, rid, probes, **kw)
+    want = ivf_scan.ivf_scan_topk_plain(q, cent, packed, scales, rid, probes, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, k) and got[1].dtype == torch.int32
+    _assert_ivf_match(got, want, IVF_TOL)
+    if built.get("distinct"):
+        assert torch.unique(probes).numel() == B * nprobe
+
+
+@pytest.mark.parametrize("bits,kw", [(8, {}), (4, _HI_PLANE)])
+def test_ivf_scan_topk_kernel_is_deterministic(dev, bits, kw):
+    """Two runs of K6 give the same bits (each row's sum and the selection
+    run in a fixed order; no float atomics)."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    q, cent, packed, scales, rid, probes = _ivf_k6_case(dev, 64, 768, 1536, 1220, bits, 64, 8, seed=5)
+    kw = dict(k=64, bits=bits, group_size=32, l_blk=1536, **kw)
+    a = ivf_scan.ivf_scan_topk_cuda(q, cent, packed, scales, rid, probes, **kw)
+    b = ivf_scan.ivf_scan_topk_cuda(q, cent, packed, scales, rid, probes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_ivf_scan_kernel_rejects_swapped_nibbles(dev):
+    """The bar above sees a fault in K6's int4 decode: the nibbles of each byte swapped."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    cent, packed, scales, rid = _ivf_storage(dev, 16, 768, 1536, 1220, 4, seed=4)
+    q, probes = _ivf_queries(dev, cent, 8, 4, seed=4)
+    p = packed.to(torch.int32) & 0xFF
+    p = ((p & 0xF) << 4) | (p >> 4)
+    swapped = torch.where(p >= 128, p - 256, p).to(torch.int8)
+    kw = dict(k=10, bits=4, group_size=32, l_blk=1536)
+    got = ivf_scan.ivf_scan_topk_cuda(q, cent, swapped, scales, rid, probes, **kw)
+    want = ivf_scan.ivf_scan_topk_plain(q, cent, packed, scales, rid, probes, **kw)
+    with pytest.raises(AssertionError):
+        _assert_ivf_match(got, want, IVF_TOL)
+
+
+@pytest.mark.parametrize("bits,D,group_size,misaligned,kw", [
+    (8, 1536, 32, False, {}),  # a warp a row
+    (4, 1536, 32, False, _HI_PLANE),
+    (8, 96, 32, False, {}),  # two lanes a row
+    (8, 4096, 32, False, {}),  # three passes a row
+    (8, 11264, 32, False, {}),  # q and its tables pass 48 KB of shared memory
+    (4, 768, 16, False, {}),  # two groups in a 16-byte word: 4-byte words, a scale a value
+    (4, 768, 16, False, _HI_PLANE),
+    (8, 128, 8, False, {}),
+    (8, 768, 24, False, {"track_positions": True}),  # words straddle groups
+    (8, 100, 4, False, {}),  # rows of 25 4-byte words
+    (4, 200, 2, False, {}),
+    (8, 4096, 8, False, {}),  # 4-byte words in eight passes, rows in two ranges
+    (8, 768, 32, True, {}),  # storage 4 bytes past a 16-byte boundary
+])
+def test_ivf_scan_topk_kernel_other_plans(dev, bits, D, group_size, misaligned, kw):
+    """K6 on rows that the 16-byte plan of the 10M configuration does not
+    fit: other widths, groups smaller than a word or straddled by one, rows
+    of 4-byte words, storage off a 16-byte boundary."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    C, L_pad, B, nprobe = (8, 512, 4, 3) if D > 4096 else (16, 512, 16, 4)
+    cent, packed, scales, rid = _ivf_storage(dev, C, D, L_pad, 400, bits, seed=D + group_size, group_size=group_size)
+    if misaligned:
+        buf = torch.empty(packed.numel() + 4, dtype=torch.int8, device=dev)
+        buf[4:] = packed.flatten()
+        packed = buf[4:].view(packed.shape)
+    plan = ivf_scan.k6_plan(D, bits, group_size, packed.data_ptr() % 16 == 0)
+    assert plan.wide == (not misaligned and group_size % (128 // bits) == 0 and D * bits % 128 == 0)
+    q, probes = _ivf_queries(dev, cent, B, nprobe, seed=D)
+    kw = dict(k=10 if "track_positions" not in kw else 64, bits=bits, group_size=group_size, l_blk=L_pad, **kw)
+    got = ivf_scan.ivf_scan_topk_cuda(q, cent, packed, scales, rid, probes, **kw)
+    want = ivf_scan.ivf_scan_topk_plain(q, cent, packed, scales, rid, probes, **kw)
+    torch.cuda.synchronize()
+    _assert_ivf_match(got, want, IVF_TOL)
+
+
+@pytest.mark.parametrize("dim,kw", [(1536, dict(dtype="int8")), (768, dict(dtype="int4", group_size=16)),
+                                    (768, dict(dtype="int4", group_size=16, refine="int8"))])
+def test_ivf_index_kernel_route_at_other_widths(dev, dim, kw):
+    """`IVFIndex.search` on the card through K6 against its materializing
+    route: an int8 index at D 1,536, int4 indexes with groups of 16."""
+    from intel_extension_for_transformers_tpu_torch.retrieval import IVFIndex, clustered_embeddings_device
+
+    docs, queries = clustered_embeddings_device(20_000, dim, 32, n_topics=32, device=dev)
+    skw = {"rescore_r": 48, "rescore_t": 8} if "refine" in kw else {}
+    idx = IVFIndex(dim, 64, list_cap=512, spill=True, device=dev, **kw)
+    idx.train(docs[:8000], iters=4)
+    idx.add(docs)
+    got = idx.search(queries, k=10, nprobe=6, **skw)
+    want = idx.search(queries, k=10, nprobe=6, use_kernel=False, **skw)
+    _assert_ivf_match([torch.from_numpy(a) for a in got], [torch.from_numpy(a) for a in want], IVF_TOL)
 
 
 def test_ivf_index_kernel_route_matches_materializing_route(dev):
