@@ -23,12 +23,13 @@ kernel against its plain PyTorch version on the card:
      alone, and K1, K2 and K3 at M = 1 on the Llama decode products with a
      cold L2 (K1 beside K3 on the same; K3 beside the library call and the
      column-a-lane GEMV its split-K GEMV replaced); K6 and K7 on 256 lists
-     of phase 7's shape (queries share lists), and K6 again on 4,096 lists
-     at phase 7's sharing (64 queries near distinct centroids: >= 450
-     distinct lists for the 512 probes), K6 beside its earlier design
-     (`profile_ivf.yardstick_scan_topk`) with each first launch and the merge
-     timed alone; faults planted in K6's inputs (scales one group late, int4
-     nibbles swapped) must fail the K6 bar;
+     of phase 7's shape (queries share lists), and again on 4,096 lists at
+     phase 7's sharing (64 queries near distinct centroids: >= 450 distinct
+     lists for the 512 probes), each beside its earlier design
+     (`profile_ivf.yardstick_scan_topk`, `yardstick_scan_candidates`) with
+     each first launch (and K6's merge) timed alone; faults planted in K6's
+     and K7's inputs (scales one group late, int4 or hi-plane nibbles
+     swapped) must fail their bars;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
      cross-encoder rerank → QA prompt, over docs/ and the repository's *.md;
   4. the flat-search workload of bench.py: 100k x 768 clustered embeddings in
@@ -153,6 +154,8 @@ IVF_CASES_PHASE7 = (
     ("K6", "int8", 8, 10, {}),
     ("K6", "int4", 4, 10, {}),
     ("K6", "refine hi plane r 64", "hi", 64, {"track_positions": True, "code_mult": 16, "code_offset": 8}),
+    ("K7", "refine hi plane t 24", "hi", 24, {"code_mult": 16, "code_offset": 8}),
+    ("K7", "int8 t 24", 8, 24, {}),
 )
 # Phase 7's recall bars against the exact f32 top-10 oracle. "Reach" is the
 # share of the oracle's rows stored in a list the query probes: the most any
@@ -266,13 +269,14 @@ def ivf_storage(torch, dev, C: int):
 def ivf_kernel_cases(torch, dev, C: int, cases, distinct: bool = False, faults: bool = False) -> dict:
     """Phase 2's K6 and K7 cases on C lists of `ivf_storage`: B queries near
     B centroids (drawn at random, or `distinct` ones), each case `(kernel,
-    label, plane, quota, kwargs)` against its plain version, K6 also beside
-    its earlier design (`profile_ivf.yardstick_scan_topk`) and with its scan
-    and merge timed alone; then, with `faults`, faults planted in K6's inputs.
+    label, plane, quota, kwargs)` against its plain version and beside its
+    earlier design (`profile_ivf.yardstick_scan_topk` / `_candidates`),
+    with the first launch of each design (and K6's merge) timed alone; then,
+    with `faults`, faults planted in K6's and K7's inputs.
     → {"K6": [case, ...], "K7": [...]}."""
     from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
     from intel_extension_for_transformers_tpu_torch.utils import profile_ivf
-    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import events_ms
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import cold_ms, events_ms
 
     D, g, L, B, nprobe = (IVF_SHAPE[k] for k in ("D", "group_size", "L", "B", "nprobe"))
     cent, planes, row_ids, gen = ivf_storage(torch, dev, C)
@@ -285,6 +289,7 @@ def ivf_kernel_cases(torch, dev, C: int, cases, distinct: bool = False, faults: 
     print(f"IVF kernel cases on {C} lists: {B * nprobe} probes hit {n_lists} distinct lists")
     fns = {"K6": (ivf_scan.ivf_scan_topk_cuda, ivf_scan.ivf_scan_topk_plain, "k"),
            "K7": (ivf_scan.ivf_scan_candidates_cuda, ivf_scan.ivf_scan_candidates_plain, "t")}
+    yardsticks = {"K6": profile_ivf.yardstick_scan_topk, "K7": profile_ivf.yardstick_scan_candidates}
     out = {"K6": [], "K7": []}
 
     def call(kernel, plane, quota, codes=None, scales=None, **kw):
@@ -308,28 +313,41 @@ def ivf_kernel_cases(torch, dev, C: int, cases, distinct: bool = False, faults: 
         cuda, plain, _ = fns[kernel]
         case = dict(label=label, C=C, L=L, D=D, g=g, B=B, nprobe=nprobe, distinct_lists=n_lists, **kw,
                     max_abs_err=mabs, ms=events_ms(lambda: cuda(*args, **kw), 20))
+        yardstick = yardsticks[kernel]
+        yard = yardstick(*args, **kw)
+        if kernel == "K7":
+            yard = tuple(x.reshape(-1, quota) for x in yard)
+        case["yardstick_max_abs_err"] = float((yard[0][fin] - want[0][fin]).abs().max())
+        case["yardstick_ms"] = events_ms(lambda: yardstick(*args, **kw), 20)
+        # the first launch of each design alone (K7's: without adding the base), and K6's merge alone
+        scan_kw = dict(code_mult=1, code_offset=0, bits=kw["bits"], group_size=g)
+        scan_kw.update({key: val for key, val in kw.items() if key in scan_kw})
+        storage = (q, args[2], args[3], row_ids)
         if kernel == "K6":
-            yard = profile_ivf.yardstick_scan_topk(*args, **kw)
-            case["yardstick_max_abs_err"] = float((yard[0][fin] - want[0][fin]).abs().max())
-            case["yardstick_ms"] = events_ms(lambda: profile_ivf.yardstick_scan_topk(*args, **kw), 20)
-            # the first launch of each design alone, and K6's merge alone
-            scan_kw = dict(track_positions=False, code_mult=1, code_offset=0)
-            scan_kw.update({key: val for key, val in kw.items() if key in scan_kw or key in ("bits", "group_size")})
+            scan_kw["track_positions"] = kw.get("track_positions", False)
             csims = q @ cent.T
-            storage = (q, args[2], args[3], row_ids)
             lists, base = profile_ivf.yardstick_lists(q, cent, probes)
             s1, i1 = ivf_scan._k6_scan(*storage, probes, csims, k=quota, **scan_kw)
             s1, i1 = s1.flatten(1), i1.flatten(1)
             case["scan_ms"] = events_ms(lambda: ivf_scan._k6_scan(*storage, probes, csims, k=quota, **scan_kw), 20)
             case["yardstick_scan_ms"] = events_ms(
-                lambda: ivf_scan._launch_scan(*storage, lists, base, k=quota, **scan_kw), 20)
+                lambda: profile_ivf._launch_scan(*storage, lists, base, k=quota, **scan_kw), 20)
             case["merge_ms"] = events_ms(lambda: ivf_scan._merge_topk(s1, i1, quota), 20)
+        else:
+            # K7's whole call turns host-bound: its device time from a CUDA graph, beside the eager time
+            case["graph_ms"], case["eager_ms"] = cold_ms(lambda *_: cuda(*args, **kw), None, [None], calls=20)
+            case["yardstick_graph_ms"], _ = cold_ms(lambda *_: yardstick(*args, **kw), None, [None], calls=20)
+            case["splits"] = ivf_scan._k6_route(D, kw["bits"], g, args[2])[1]
+            case["scan_ms"] = events_ms(lambda: ivf_scan._k7_scan(*storage, probes, t=quota, **scan_kw), 20)
+            case["yardstick_scan_ms"] = events_ms(
+                lambda: profile_ivf._launch_scan(*storage, probes, None, k=quota, track_positions=True, **scan_kw),
+                20)
         case["plain_ms"] = events_ms(lambda: plain(*args, **kw), 3, warmup=1)
         case.update(ivf_bound(torch, q, args[2], args[3], row_ids, probes, got))
         print(f"{kernel} " + json.dumps(case))
         check(diff is None, f"{kernel} {label} against its plain version: {diff}")
-        if kernel == "K6":
-            check(ivf_match(torch, yard, want) is None, f"the earlier design of K6, {label}, against the plain version")
+        check(ivf_match(torch, yard, want) is None,
+              f"the earlier design of {kernel}, {label}, against the plain version")
         out[kernel].append(case)
     if distinct:
         check(n_lists >= 450, f"the probes of the sharing case hit at least 450 distinct lists ({n_lists})")
@@ -339,14 +357,18 @@ def ivf_kernel_cases(torch, dev, C: int, cases, distinct: bool = False, faults: 
         p = ((p & 0xF) << 4) | (p >> 4)
         return torch.where(p >= 128, p - 256, p).to(torch.int8)
 
-    for what, plane, faulty in (
-        ("scales one group late", 8, dict(scales=torch.roll(planes[8][1], 1, dims=2))),
-        ("int4 nibbles of each byte swapped", 4, dict(codes=swap_nibbles(planes[4][0]))),
+    hi_codes = {"code_mult": 16, "code_offset": 8}
+    for kernel, quota, what, plane, faulty in (
+        ("K6", 10, "scales one group late", 8, dict(scales=torch.roll(planes[8][1], 1, dims=2))),
+        ("K6", 10, "int4 nibbles of each byte swapped", 4, dict(codes=swap_nibbles(planes[4][0]))),
+        ("K7", 24, "scales one group late", 8, dict(scales=torch.roll(planes[8][1], 1, dims=2))),
+        ("K7", 24, "hi plane nibbles of each byte swapped", "hi", dict(codes=swap_nibbles(planes["hi"][0]),
+                                                                       **hi_codes)),
     ) if faults else ():
-        got, want, _, _ = call("K6", plane, 10, **faulty)
+        got, want, _, _ = call(kernel, plane, quota, **faulty)
         diff = ivf_match(torch, got, want)
-        print(f"planted fault, K6 {what}: {diff or 'within the bar'}")
-        check(diff is not None, f"the K6 bar rejects the planted fault: {what}")
+        print(f"planted fault, {kernel} {what}: {diff or 'within the bar'}")
+        check(diff is not None, f"the {kernel} bar rejects the planted fault: {what}")
     return out
 
 
@@ -874,7 +896,7 @@ def main() -> int:
     # planted faults; C = 4096, 64 distinct picks: phase 7's sharing
     ivf_cases = ivf_kernel_cases(torch, dev, 256, IVF_CASES_SHARED, faults=True)
     torch.cuda.empty_cache()
-    ivf_k6_phase7 = ivf_kernel_cases(torch, dev, 4096, IVF_CASES_PHASE7, distinct=True)["K6"]
+    ivf_phase7 = ivf_kernel_cases(torch, dev, 4096, IVF_CASES_PHASE7, distinct=True)
     torch.cuda.empty_cache()
 
     launches = {"woq_int4": 0, "woq_int8": 0, "scan_top2": 0, "woq_w32": 0, "flash_attention": 0,
@@ -1435,8 +1457,8 @@ def main() -> int:
     k1_tiles = next(c for c in k1_cases if c["label"] == "llama qkvo" and c["M"] == 512)
     shown = ("M", "K", "N", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k4_window = next(c for c in k4_cases if c["label"] == "llama-2-7b window" and c["dtype"] == "bfloat16")
-    k6_int8 = ivf_k6_phase7[0]
-    k7_hi = ivf_cases["K7"][0]
+    k6_int8 = ivf_phase7["K6"][0]
+    k7_hi = ivf_phase7["K7"][0]
 
     def row(name, source, replaces, cases, shown):
         """One kernel's entry: errors over all its cases, times and bound at `shown`."""
@@ -1466,10 +1488,13 @@ def main() -> int:
                                                                "bound_ms", "bound_by", "library_ms", "colwise_gemv_ms")}
                          for c in k3_cases if c["label"].endswith("L2-cold")}},
         row("flash_attention", "flash_attention.cu", "flash_attention.py:38", k4_cases, k4_window),
-        {**row("ivf_scan_topk", "ivf_scan_topk.cu", "ivf_scan.py:178", ivf_cases["K6"] + ivf_k6_phase7, k6_int8),
+        {**row("ivf_scan_topk", "ivf_scan_topk.cu", "ivf_scan.py:178", ivf_cases["K6"] + ivf_phase7["K6"], k6_int8),
          "case": {key: k6_int8[key] for key in ("label", "C", "distinct_lists", "k", "scan_ms", "merge_ms")},
          "yardstick_ms": k6_int8["yardstick_ms"], "yardstick_scan_ms": k6_int8["yardstick_scan_ms"]},
-        row("ivf_scan_candidates", "ivf_scan.cu", "ivf_scan.py:511", ivf_cases["K7"], k7_hi),
+        {**row("ivf_scan_candidates", "ivf_scan_topk.cu", "ivf_scan.py:511", ivf_cases["K7"] + ivf_phase7["K7"], k7_hi),
+         "case": {key: k7_hi[key] for key in ("label", "C", "distinct_lists", "t", "splits", "scan_ms", "graph_ms",
+                                              "yardstick_graph_ms")},
+         "yardstick_ms": k7_hi["yardstick_ms"], "yardstick_scan_ms": k7_hi["yardstick_scan_ms"]},
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

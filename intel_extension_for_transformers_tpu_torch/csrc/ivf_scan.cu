@@ -1,11 +1,13 @@
-// K7 and K6's merge: IVF scans over packed residual lists (sm_90a).
+// The merge of the IVF scans (itx_ivf_merge_topk), and the earlier design of
+// both scans (itx_ivf_scan_lists), for Hopper (sm_90a).
 //
-// K7 replaces intel_extension_for_transformers_tpu/ops/ivf_scan.py
-// ::_ivf_candidates_kernel (:511, launched by ivf_scan_candidates). K6
-// (::_ivf_scan_kernel) is ivf_scan_topk.cu; it ends in
-// itx_ivf_merge_topk below. itx_ivf_scan_lists with a base and the merge is
-// K6's earlier design, which utils/profile_ivf.py times beside it; the port
-// calls it for K7 only.
+// K6 (::_ivf_scan_kernel) and K7 (::_ivf_candidates_kernel of
+// intel_extension_for_transformers_tpu/ops/ivf_scan.py) are
+// ivf_scan_topk.cu. The port calls itx_ivf_merge_topk from here: after K6,
+// to rank each query's candidates, and after K7 where a list is cut into row
+// ranges, to rank each probe slot's. itx_ivf_scan_lists is the first design
+// of both, kept built as a yardstick that utils/profile_ivf.py and
+// chip_smoke.py time beside them; the port never calls it.
 //
 // A list is L rows of W bytes of codes (int8, or two int4 per byte: column
 // 2w in the low nibble of byte w, 2w+1 in the high one), G bf16 group scales
@@ -19,19 +21,13 @@
 // 4 int8 or 8 int4 columns each; the query sits in shared memory as f32),
 // and merges each tile into a best-first top-k kept in shared memory by a
 // bitonic sort of the k best so far and the tile, skipped when no row of the
-// tile beats the k-th. A slot whose list is -1 writes (-inf, -1) only. K7
-// calls it with no base and flat storage positions as ids; with the base, a
-// query's repeated probes set to -1, and then itx_ivf_merge_topk (one block
-// per query, the same tile merge) over each query's candidates, it is K6's
-// earlier design.
+// tile beats the k-th. A slot whose list is -1 writes (-inf, -1) only. With
+// no base and flat storage positions as ids it is K7's earlier design; with
+// the base, a query's repeated probes set to -1, and then the merge, K6's.
 //
-// Bound on the H100: the bytes of the probed lists' codes, scales and row
-// ids (a 1536-row int8 list of dim 768 is 1.26 MB). Each block streams its
-// list once with coalesced 32-bit loads and decodes in registers, so no
-// decoded residual and no (query, candidate) score reaches device memory;
-// the TPU kernel's running top-k across a sequential grid becomes a top-k
-// per block plus a second pass. Not done here: reading a list once for all
-// the queries that probe it, cp.async/TMA staging, tensor cores.
+// itx_ivf_merge_topk: one block per row of R candidates keeps its best k
+// by the same tile merge. Bound on the H100: its candidates' bytes, a few
+// KB a row; the scans' bounds are in ivf_scan_topk.cu.
 
 #include <math.h>
 #include <stdint.h>

@@ -1,12 +1,15 @@
-// K6: the IVF top-k scan over packed residual lists, for Hopper (sm_90a).
+// K6 and K7: the IVF scans over packed residual lists, for Hopper (sm_90a).
 //
-// Replaces intel_extension_for_transformers_tpu/ops/ivf_scan.py
-// ::_ivf_scan_kernel (:178, launched by ivf_scan_topk :390 through
-// pl.pallas_call :473; its decode is _tile_scores :243, its work gate
-// _scan_work :295). The list layout and the arithmetic are those of
-// ivf_scan.cu: a row's score is q.centroid (the base) plus the f32 sum of
-// bf16(q) * bf16(code * code_mult + code_offset) * scale, the residual
-// rounded to bf16 once; on equal scores the highest id ranks first.
+// K6 (ivf_topk_kernel) replaces intel_extension_for_transformers_tpu/ops/
+// ivf_scan.py::_ivf_scan_kernel (:178, launched by ivf_scan_topk :390
+// through pl.pallas_call :473; its decode is _tile_scores :243, its work
+// gate _scan_work :295): the global top-k of the probed lists. K7
+// (ivf_slot_topk_kernel) replaces ::_ivf_candidates_kernel (:511, launched
+// by ivf_scan_candidates :647 through pl.pallas_call :720): each probe
+// slot's top-t. The list layout and the arithmetic are those of
+// ivf_scan.cu: a row's score is the f32 sum of bf16(q) * bf16(code *
+// code_mult + code_offset) * scale, the residual rounded to bf16 once, plus
+// q.centroid (the base) for K6; on equal scores the highest id ranks first.
 //
 // Bound on the H100: the bytes of the probed lists' occupied rows (codes and
 // scales) and all their row ids, at 3.35 TB/s. One query probes a list in a
@@ -14,16 +17,18 @@
 // each (query, list) pair streams its list once, as a GEMV does. Near that
 // rate the decode takes most of the issue slots (~8.8 lane instructions a
 // byte at 3.35 TB/s over 132 SMs), so the design keeps the instructions a
-// value few and the loads wide:
+// value few and the loads wide. Both kernels share every step up to the
+// selection (stage_range, score_rows, radix_select, emit_selected):
 //
-// - One block of 256 threads a (query, probe slot, row range); a slot whose
-//   list the query probed at an earlier slot writes only (-inf, -1), so a
-//   list counts once. The block reads the range's row ids at once (<= 8 a
-//   thread), compacts the occupied slots in order into shared memory, so
-//   empty slots cost neither loads nor a pass of the walk, and stages q there
-//   as f32, each lane's columns together in the order in which it decodes
-//   them (a lane's block of kStride float4s, an odd count: the lanes of a
-//   row read 16-byte chunks free of bank conflicts).
+// - One block of 256 threads a (query, probe slot, row range); in K6 a slot
+//   whose list the query probed at an earlier slot writes only (-inf, -1),
+//   so a list counts once (K7 scans a repeat again, as the JAX wrapper's
+//   probe-slot mapping does). The block reads the range's row ids at once
+//   (<= 8 a thread), compacts the occupied slots in order into shared
+//   memory, so empty slots cost neither loads nor a pass of the walk, and
+//   stages q there as f32, each lane's columns together in the order in
+//   which it decodes them (a lane's block of kStride float4s, an odd count:
+//   the lanes of a row read 16-byte chunks free of bank conflicts).
 // - The plan (ops/ivf_scan.py::k6_plan): a row is `words` words, read by a
 //   fixed group of `lanes` lanes (a power of two, at most a warp), each
 //   taking WPL words a pass (word p * lanes * WPL + lane + lanes * j of pass
@@ -49,9 +54,17 @@
 // - One selection a range, not a sort a tile: the scores stay in shared
 //   memory; a radix select over the 64-bit key (score, id) finds the k-th
 //   best in 8-bit digits (it stops once the digits fix the set, usually
-//   after the score's 4), and the k best are written unordered, in slot
-//   order. itx_ivf_merge_topk (ivf_scan.cu) then ranks each query's
-//   candidates.
+//   after the score's 4). K6 writes the k best unordered, in slot order, and
+//   itx_ivf_merge_topk (ivf_scan.cu) ranks each query's candidates. K7
+//   selects by the residual dot alone (ivf_scan.py adds the base after),
+//   with flat storage positions as ids, and writes its t <= 256 best first:
+//   a key's place is the count of chosen keys above it (the keys are
+//   unique), one thread a key, no sort. Where a list is cut into ranges,
+//   itx_ivf_merge_topk ranks each slot's ranges' candidates.
+// - K7 takes what K6 takes: the plan's rows of whole 4-byte words, codes
+//   whose code * mult + offset bf16 holds exactly with mult and offset
+//   powers of two (ops/ivf_scan.py::k6_check_codes; the callers pass (1, 0)
+//   and the refine hi plane's (16, 8)), 1 <= t <= 256.
 
 #include <math.h>
 #include <stdint.h>
@@ -184,53 +197,55 @@ __device__ __forceinline__ unsigned long long rank_key(float s, int id) {
   return (static_cast<unsigned long long>(o) << 32) | static_cast<uint32_t>(id);
 }
 
-// One block per (query * nprobe + probe slot) * splits + row range; base is
-// (B, C) q.centroid. lanes: a power of two <= 32; words: the row's words.
+// What every block of a launch takes of the plan and the storage. lanes: a
+// power of two <= 32; words: the row's words; a list of L rows is cut into
+// `splits` ranges of `split_rows`.
+struct Layout {
+  int D, L, G, group_size, lanes, passes, words, splits, split_rows;
+  uint32_t mult2, offset2;  // code_mult and code_offset as bf16 pairs
+};
+
+// A block's dynamic shared memory (smem_bytes): q, the word table, the group
+// table (4-byte words only), then the range's scores, ids and slots.
 template <int BITS, bool WIDE>
-__global__ void __launch_bounds__(kThreads, 4)
-ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ packed,
-                const uint16_t* __restrict__ scales, const int* __restrict__ row_ids,
-                const int* __restrict__ lists, const float* __restrict__ base,
-                float* __restrict__ out_s, int* __restrict__ out_i, int C, int nprobe, int splits,
-                int split_rows, int D, int L, int G, int group_size, int k, int lanes, int passes, int words,
-                uint32_t mult2, uint32_t offset2, int track_positions) {
+struct Range {
+  float4* qs;
+  int* wt;    // a word's group (WIDE) or 0; -1: masked
+  uint2* gq;  // 4-byte words: each value's group
+  float* sc;
+  int* ids;
+  int* slots;
+};
+
+template <int BITS, bool WIDE>
+__device__ __forceinline__ Range<BITS, WIDE> carve(unsigned char* smem, const Layout& lo) {
   using Wd = Words<BITS, WIDE>;
-  constexpr int kVec = Wd::kVec, kVPW = Wd::kVPW, kCh = Wd::kCh, kWPL = Wd::kWPL, kStride = Wd::kStride;
-  const int n_lane_blocks = passes * lanes;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float4* qs = reinterpret_cast<float4*>(smem);
-  int* wt = reinterpret_cast<int*>(qs + n_lane_blocks * kStride);  // a word's group (WIDE) or 0; -1: masked
-  uint2* gq = reinterpret_cast<uint2*>(wt + n_lane_blocks * kWPL);  // 4-byte words: each value's group
-  float* sc = reinterpret_cast<float*>(WIDE ? reinterpret_cast<unsigned char*>(gq)
-                                            : reinterpret_cast<unsigned char*>(gq + n_lane_blocks * kStride));
-  int* ids = reinterpret_cast<int*>(sc + split_rows);
-  int* slots = ids + split_rows;
-  __shared__ int warp_tot[kWarps];
-  __shared__ unsigned hist[256];
-  __shared__ int pick[3];  // digit, count above it, count at it
+  const int n_lane_blocks = lo.passes * lo.lanes;
+  Range<BITS, WIDE> rg;
+  rg.qs = reinterpret_cast<float4*>(smem);
+  rg.wt = reinterpret_cast<int*>(rg.qs + n_lane_blocks * Wd::kStride);
+  rg.gq = reinterpret_cast<uint2*>(rg.wt + n_lane_blocks * Wd::kWPL);
+  rg.sc = reinterpret_cast<float*>(WIDE ? reinterpret_cast<unsigned char*>(rg.gq)
+                                        : reinterpret_cast<unsigned char*>(rg.gq + n_lane_blocks * Wd::kStride));
+  rg.ids = reinterpret_cast<int*>(rg.sc + lo.split_rows);
+  rg.slots = rg.ids + lo.split_rows;
+  return rg;
+}
 
+// Rows [r_lo, r_hi) of the list at row0: reads the range's row ids, all in
+// flight at once; stages q (row qb) and the tables by the plan; compacts the
+// occupied slots in order. An id is the row id, or (positions) the flat
+// storage position row0 + slot. → the occupied rows n. Every thread calls it.
+template <int BITS, bool WIDE>
+__device__ __forceinline__ int stage_range(const Range<BITS, WIDE>& rg, const Layout& lo,
+                                           const __nv_bfloat16* __restrict__ qb,
+                                           const int* __restrict__ row_ids, size_t row0, int r_lo, int r_hi,
+                                           bool positions, int* warp_tot) {
+  using Wd = Words<BITS, WIDE>;
+  constexpr int kVPW = Wd::kVPW, kCh = Wd::kCh, kWPL = Wd::kWPL, kStride = Wd::kStride;
   const int tid = threadIdx.x;
-  const int pair = blockIdx.x / splits;
-  const int r_lo = (blockIdx.x % splits) * split_rows;
-  const int r_hi = min(L, r_lo + split_rows);
-  float* os = out_s + static_cast<size_t>(blockIdx.x) * k;
-  int* oi = out_i + static_cast<size_t>(blockIdx.x) * k;
-  const int b = pair / nprobe, slot = pair % nprobe;
-  const int* probes = lists + static_cast<size_t>(b) * nprobe;
-  const int list = probes[slot];
-  bool repeat = list < 0;  // a list the query probed at an earlier slot counts once
-  for (int j = 0; j < slot; ++j) repeat |= probes[j] == list;
-  if (repeat) {
-    for (int i = tid; i < k; i += kThreads) {
-      os[i] = -INFINITY;
-      oi[i] = -1;
-    }
-    return;
-  }
-  const size_t row0 = static_cast<size_t>(list) * L;
-
-  // the range's row ids, all in flight at once; q and the tables by the
-  // plan; then the occupied slots, compacted in order
+  const int lanes = lo.lanes, words = lo.words;
+  const int n_lane_blocks = lo.passes * lanes;
   int rid[kRowsPerThread];
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
@@ -238,9 +253,8 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
     rid[j] = r < r_hi ? __ldg(row_ids + row0 + r) : -1;
   }
   const int lshift = __ffs(lanes) - 1;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * D;
-  float* qf = reinterpret_cast<float*>(qs);
-  uint16_t* gv = reinterpret_cast<uint16_t*>(gq);
+  float* qf = reinterpret_cast<float*>(rg.qs);
+  uint16_t* gv = reinterpret_cast<uint16_t*>(rg.gq);
   for (int s = tid; s < n_lane_blocks * kStride * 4; s += kThreads) {
     // slot s: value e of chunk c of word j of (pass, lane) block s / 4 / kStride
     const int f4 = s >> 2, e = s & 3;
@@ -257,7 +271,7 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
       const int col = BITS == 8 ? (((t & 1) << 1) | (t >> 1)) : (((t & 3) << 1) | (t >> 2));
       const int d = w * kVPW + (pos - t) + col;
       v = __bfloat162float(qb[d]);
-      g = d / group_size;
+      g = d / lo.group_size;
     }
     qf[s] = v;
     if (!WIDE) gv[s] = static_cast<uint16_t>(g);
@@ -265,7 +279,7 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
   for (int s = tid; s < n_lane_blocks * kWPL; s += kThreads) {
     const int lb = s / kWPL, j = s % kWPL;
     const int w = (lb >> lshift) * lanes * kWPL + (lb & (lanes - 1)) + lanes * j;
-    wt[s] = w >= words ? -1 : WIDE ? w * kVPW / group_size : 0;
+    rg.wt[s] = w >= words ? -1 : WIDE ? w * kVPW / lo.group_size : 0;
   }
   int n = 0;
 #pragma unroll
@@ -276,21 +290,37 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
     const int at = n + block_rank(occ, warp_tot, total);
     if (occ) {
       const int r = r_lo + tid + j * kThreads;
-      slots[at] = r;
-      ids[at] = track_positions ? static_cast<int>(row0 + r) : rid[j];
+      rg.slots[at] = r;
+      rg.ids[at] = positions ? static_cast<int>(row0 + r) : rid[j];
     }
     n += total;
   }
   __syncthreads();
+  return n;
+}
 
-  // the walk: group grp of `lanes` lanes scores rows grp, grp + groups, ...,
-  // each in `passes` steps
+// The walk: group grp of `lanes` lanes scores rows grp, grp + groups, ...,
+// each in `passes` steps; row i's score (its residual dot plus bias) goes
+// to sc[i]. Every thread calls it.
+template <int BITS, bool WIDE>
+__device__ __forceinline__ void score_rows(const Range<BITS, WIDE>& rg, const Layout& lo, int n,
+                                           const uint8_t* __restrict__ packed,
+                                           const uint16_t* __restrict__ scales, size_t row0, float bias) {
+  using Wd = Words<BITS, WIDE>;
+  constexpr int kVec = Wd::kVec, kCh = Wd::kCh, kWPL = Wd::kWPL, kStride = Wd::kStride;
+  const int tid = threadIdx.x;
+  const int lanes = lo.lanes, passes = lo.passes, G = lo.G;
+  const uint32_t mult2 = lo.mult2, offset2 = lo.offset2;
+  const int lshift = __ffs(lanes) - 1;
   const int lig = tid & (lanes - 1);
   const int grp = tid >> lshift;
   const int groups = kThreads >> lshift;
   const int steps = (n + groups - 1) / groups * passes;  // uniform over the block
-  const size_t row_bytes = static_cast<size_t>(words) * kVec * 4;
-  const float bias = base[static_cast<size_t>(b) * C + list];
+  const size_t row_bytes = static_cast<size_t>(lo.words) * kVec * 4;
+  const float4* qs = rg.qs;
+  const int* wt = rg.wt;
+  const uint2* gq = rg.gq;
+  const int* slots = rg.slots;
 
   int wv[kWPL];  // wt of the pass in `wv_pass`, for this lane
   int wv_pass = -1;
@@ -376,7 +406,7 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
       for (int off = 16; off > 0; off >>= 1) {
         if (off < lanes) acc += __shfl_xor_sync(0xffffffffu, acc, off);
       }
-      if (lig == 0 && i_cur < n) sc[i_cur] = acc + bias;
+      if (lig == 0 && i_cur < n) rg.sc[i_cur] = acc + bias;
       a0 = a1 = 0.f;
     }
 #pragma unroll
@@ -389,17 +419,18 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
     p_cur = p_nxt;
   }
   __syncthreads();
+}
 
-  if (n <= k) {  // every occupied row, then (-inf, -1)
-    for (int i = tid; i < k; i += kThreads) {
-      os[i] = i < n ? sc[i] : -INFINITY;
-      oi[i] = i < n ? ids[i] : -1;
-    }
-    return;
-  }
-
-  // radix select of the k-th best key, 8 bits a pass from the top
-  unsigned long long prefix = 0ull, mask = 0ull;
+// Radix select of the k-th best key over n > k rows, 8 bits a pass from the
+// top (it stops once the digits fix the set, usually after the score's 4).
+// → need: the k best are every key whose bits under `mask` exceed `prefix`,
+// then the first `need` equal to it. Every thread calls it.
+__device__ __forceinline__ int radix_select(const float* sc, const int* ids, int n, int k, unsigned* hist,
+                                            int* warp_tot, int* pick, unsigned long long& prefix,
+                                            unsigned long long& mask) {
+  const int tid = threadIdx.x;
+  prefix = 0ull;
+  mask = 0ull;
   int need = k;
   for (int shift = 56; shift >= 0; shift -= 8) {
     hist[tid] = 0u;
@@ -430,12 +461,20 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
     __syncthreads();  // pick and hist are read before the next pass writes them
     if (done) break;
   }
+  return need;
+}
 
-  // the k best: every key above the prefix, then the first `need` at it
+// emit(place, i) for each of the k best rows i that radix_select fixed:
+// those above the prefix at places 0, 1, ... in row order, then the first
+// `need` at it after them. Every thread calls it.
+template <typename Emit>
+__device__ __forceinline__ void emit_selected(const float* sc, const int* ids, int n, int k,
+                                              unsigned long long prefix, unsigned long long mask, int need,
+                                              int* warp_tot, Emit emit) {
   const int above = k - need;
   int n_gt = 0, n_eq = 0;
   for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform
-    const int i = i0 + tid;
+    const int i = i0 + threadIdx.x;
     const unsigned long long key = i < n ? rank_key(sc[i], ids[i]) & mask : 0ull;
     const bool gt = i < n && key > prefix;
     const bool eq = i < n && key == prefix;
@@ -443,14 +482,135 @@ ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__
     const int r_gt = n_gt + block_rank(gt, warp_tot, t_gt);
     const int r_eq = n_eq + block_rank(eq, warp_tot, t_eq);
     if (gt) {
-      os[r_gt] = sc[i];
-      oi[r_gt] = ids[i];
+      emit(r_gt, i);
     } else if (eq && r_eq < need) {
-      os[above + r_eq] = sc[i];
-      oi[above + r_eq] = ids[i];
+      emit(above + r_eq, i);
     }
     n_gt += t_gt;
     n_eq += t_eq;
+  }
+}
+
+// K6. One block per (query * nprobe + probe slot) * splits + row range; base
+// is (B, C) q.centroid. A slot whose list the query probed at an earlier
+// slot writes only (-inf, -1); the others their range's k best, unordered.
+template <int BITS, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 4)
+ivf_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ packed,
+                const uint16_t* __restrict__ scales, const int* __restrict__ row_ids,
+                const int* __restrict__ lists, const float* __restrict__ base,
+                float* __restrict__ out_s, int* __restrict__ out_i, int C, int nprobe, int k,
+                int track_positions, Layout lo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Range<BITS, WIDE> rg = carve<BITS, WIDE>(smem, lo);
+  __shared__ int warp_tot[kWarps];
+  __shared__ unsigned hist[256];
+  __shared__ int pick[3];  // digit, count above it, count at it
+
+  const int tid = threadIdx.x;
+  const int pair = blockIdx.x / lo.splits;
+  const int r_lo = (blockIdx.x % lo.splits) * lo.split_rows;
+  const int r_hi = min(lo.L, r_lo + lo.split_rows);
+  float* os = out_s + static_cast<size_t>(blockIdx.x) * k;
+  int* oi = out_i + static_cast<size_t>(blockIdx.x) * k;
+  const int b = pair / nprobe, slot = pair % nprobe;
+  const int* probes = lists + static_cast<size_t>(b) * nprobe;
+  const int list = probes[slot];
+  bool repeat = list < 0;  // a list the query probed at an earlier slot counts once
+  for (int j = 0; j < slot; ++j) repeat |= probes[j] == list;
+  if (repeat) {
+    for (int i = tid; i < k; i += kThreads) {
+      os[i] = -INFINITY;
+      oi[i] = -1;
+    }
+    return;
+  }
+  const size_t row0 = static_cast<size_t>(list) * lo.L;
+  const int n = stage_range(rg, lo, q + static_cast<size_t>(b) * lo.D, row_ids, row0, r_lo, r_hi,
+                            track_positions != 0, warp_tot);
+  score_rows(rg, lo, n, packed, scales, row0, base[static_cast<size_t>(b) * C + list]);
+
+  if (n <= k) {  // every occupied row, then (-inf, -1)
+    for (int i = tid; i < k; i += kThreads) {
+      os[i] = i < n ? rg.sc[i] : -INFINITY;
+      oi[i] = i < n ? rg.ids[i] : -1;
+    }
+    return;
+  }
+  unsigned long long prefix, mask;
+  const int need = radix_select(rg.sc, rg.ids, n, k, hist, warp_tot, pick, prefix, mask);
+  emit_selected(rg.sc, rg.ids, n, k, prefix, mask, need, warp_tot, [&](int place, int i) {
+    os[place] = rg.sc[i];
+    oi[place] = rg.ids[i];
+  });
+}
+
+// K7. One block per (query * nprobe + probe slot) * splits + row range: the
+// range's t best rows by the residual dot alone (no base; a repeated probe
+// is scanned again), ids the flat storage positions, written best first,
+// then (-inf, -1). A slot of -1 writes only those.
+template <int BITS, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 4)
+ivf_slot_topk_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ packed,
+                     const uint16_t* __restrict__ scales, const int* __restrict__ row_ids,
+                     const int* __restrict__ lists, float* __restrict__ out_s, int* __restrict__ out_i,
+                     int nprobe, int t, Layout lo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Range<BITS, WIDE> rg = carve<BITS, WIDE>(smem, lo);
+  __shared__ int warp_tot[kWarps];
+  __shared__ unsigned hist[256];  // the select's histogram, then the chosen scores' bits
+  __shared__ int pick[3];
+
+  const int tid = threadIdx.x;
+  const int pair = blockIdx.x / lo.splits;
+  const int r_lo = (blockIdx.x % lo.splits) * lo.split_rows;
+  const int r_hi = min(lo.L, r_lo + lo.split_rows);
+  float* os = out_s + static_cast<size_t>(blockIdx.x) * t;
+  int* oi = out_i + static_cast<size_t>(blockIdx.x) * t;
+  const int list = lists[pair];
+  if (list < 0) {
+    for (int i = tid; i < t; i += kThreads) {
+      os[i] = -INFINITY;
+      oi[i] = -1;
+    }
+    return;
+  }
+  const size_t row0 = static_cast<size_t>(list) * lo.L;
+  const int n = stage_range(rg, lo, q + static_cast<size_t>(pair / nprobe) * lo.D, row_ids, row0, r_lo,
+                            r_hi, true, warp_tot);
+  // bias +0: a score of -0 ranks as +0, as the plain version's compare takes it
+  score_rows(rg, lo, n, packed, scales, row0, 0.f);
+
+  // the chosen m <= t rows: all n, or the select's t, their (score, id)
+  // compacted into hist and slots (free once the walk and the select end)
+  const bool chose = n > t;
+  if (chose) {
+    unsigned long long prefix, mask;
+    const int need = radix_select(rg.sc, rg.ids, n, t, hist, warp_tot, pick, prefix, mask);
+    emit_selected(rg.sc, rg.ids, n, t, prefix, mask, need, warp_tot, [&](int place, int i) {
+      hist[place] = __float_as_uint(rg.sc[i]);
+      rg.slots[place] = rg.ids[i];
+    });
+    __syncthreads();
+  }
+  const int m = chose ? t : n;
+  const unsigned* sel_s = chose ? hist : reinterpret_cast<const unsigned*>(rg.sc);
+  const int* sel_i = chose ? rg.slots : rg.ids;
+  // best first: a key's place is the number of chosen keys above it (the
+  // keys are unique: positions differ); t <= kThreads
+  for (int r = tid; r < t; r += kThreads) {
+    if (r < m) {
+      const float s = __uint_as_float(sel_s[r]);
+      const int id = sel_i[r];
+      const unsigned long long key = rank_key(s, id);
+      int place = 0;
+      for (int j = 0; j < m; ++j) place += rank_key(__uint_as_float(sel_s[j]), sel_i[j]) > key;
+      os[place] = s;
+      oi[place] = id;
+    } else {
+      os[r] = -INFINITY;
+      oi[r] = -1;
+    }
   }
 }
 
@@ -463,62 +623,115 @@ uint32_t bf16x2_of(int v) {
   return bits | (bits << 16);
 }
 
+// The layout of a plan (ops/ivf_scan.py::k6_plan, k6_splits), or words = 0
+// where the plan does not fit the shape.
 template <int BITS, bool WIDE>
-int launch(const void* q, const void* packed, const void* scales, const void* row_ids, const void* lists,
-           const void* base, void* out_s, void* out_i, int B, int C, int nprobe, int D, int L, int G,
-           int group_size, int k, int lanes, int words_per_lane, int passes, int splits, int split_rows,
-           int code_mult, int code_offset, int track_positions, cudaStream_t st) {
+Layout layout_of(int D, int L, int G, int group_size, int lanes, int words_per_lane, int passes, int splits,
+                 int split_rows, int code_mult, int code_offset) {
   using Wd = Words<BITS, WIDE>;
   const int row_bytes = D * BITS / 8;
   const int words = row_bytes / (Wd::kVec * 4);
+  Layout lo{D, L, G, group_size, lanes, passes, words, splits, split_rows, bf16x2_of(code_mult),
+            code_offset != 0 ? bf16x2_of(code_offset) : 0u};
   if (words_per_lane != Wd::kWPL || row_bytes % (Wd::kVec * 4) || lanes < 1 || lanes > 32 ||
       (lanes & (lanes - 1)) || passes < 1 || passes * lanes * Wd::kWPL < words ||
-      (passes - 1) * lanes * Wd::kWPL >= words || D % group_size || G != D / group_size || G > 65536) {
-    return static_cast<int>(cudaErrorInvalidValue);
+      (passes - 1) * lanes * Wd::kWPL >= words || D % group_size || G != D / group_size || G > 65536 ||
+      split_rows > kMaxSplitRows || split_rows * splits < L) {
+    lo.words = 0;
   }
-  const size_t smem = smem_bytes<BITS, WIDE>(lanes, passes, split_rows);
-  const auto kern = ivf_topk_kernel<BITS, WIDE>;
+  return lo;
+}
+
+// Launch `kern` on one block a (pair, row range) with the layout's shared
+// memory. → cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+template <int BITS, bool WIDE, typename Kernel, typename... Args>
+int start(Kernel kern, int pairs, const Layout& lo, cudaStream_t st, Args... args) {
+  if (lo.words == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<BITS, WIDE>(lo.lanes, lo.passes, lo.split_rows);
   if (smem > 48 * 1024) {  // opt in to more shared memory than the default
     const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const uint32_t m2 = bf16x2_of(code_mult);
-  const uint32_t o2 = code_offset != 0 ? bf16x2_of(code_offset) : 0u;
-  kern<<<dim3(B * nprobe * splits), kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(packed),
-      static_cast<const uint16_t*>(scales), static_cast<const int*>(row_ids), static_cast<const int*>(lists),
-      static_cast<const float*>(base), static_cast<float*>(out_s), static_cast<int*>(out_i), C, nprobe, splits,
-      split_rows, D, L, G, group_size, k, lanes, passes, words, m2, o2, track_positions);
+  kern<<<dim3(pairs * lo.splits), kThreads, smem, st>>>(args..., lo);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS, bool WIDE>
+int launch_topk(const void* q, const void* packed, const void* scales, const void* row_ids, const void* lists,
+                const void* base, void* out_s, void* out_i, int B, int C, int nprobe, int k, int track_positions,
+                const Layout& lo, cudaStream_t st) {
+  return start<BITS, WIDE>(ivf_topk_kernel<BITS, WIDE>, B * nprobe, lo, st, static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const uint8_t*>(packed), static_cast<const uint16_t*>(scales),
+                           static_cast<const int*>(row_ids), static_cast<const int*>(lists),
+                           static_cast<const float*>(base), static_cast<float*>(out_s), static_cast<int*>(out_i),
+                           C, nprobe, k, track_positions);
+}
+
+template <int BITS, bool WIDE>
+int launch_slot_topk(const void* q, const void* packed, const void* scales, const void* row_ids,
+                     const void* lists, void* out_s, void* out_i, int B, int nprobe, int t, const Layout& lo,
+                     cudaStream_t st) {
+  return start<BITS, WIDE>(ivf_slot_topk_kernel<BITS, WIDE>, B * nprobe, lo, st,
+                           static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(packed),
+                           static_cast<const uint16_t*>(scales), static_cast<const int*>(row_ids),
+                           static_cast<const int*>(lists), static_cast<float*>(out_s), static_cast<int*>(out_i),
+                           nprobe, t);
 }
 
 }  // namespace
 
-// q: bf16 (B, D); packed: int8 (C, L, W); scales: bf16 (C, L, G); row_ids:
-// int32 (C, L); lists: int32 (B, nprobe), the probes as given (a list at an
-// earlier slot of the same query, or -1, gives only (-inf, -1)); base: f32
-// (B, C), q.centroid of every list; out_s/out_i: (B, nprobe, splits, k),
-// each range's k best unordered, (-inf, -1) where it has fewer. wide,
-// lanes_per_row, words_per_lane, passes, splits and split_rows come from
-// ops/ivf_scan.py::k6_plan and k6_splits (split_rows <= 2048); code_mult is
-// a power of two and code_offset 0 or a power of two (k6_check_codes).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a plan that does not fit the shape.
+// K6. q: bf16 (B, D); packed: int8 (C, L, W); scales: bf16 (C, L, G);
+// row_ids: int32 (C, L); lists: int32 (B, nprobe), the probes as given (a
+// list at an earlier slot of the same query, or -1, gives only (-inf, -1));
+// base: f32 (B, C), q.centroid of every list; out_s/out_i: (B, nprobe,
+// splits, k), each range's k best unordered, (-inf, -1) where it has fewer.
+// wide, lanes_per_row, words_per_lane, passes, splits and split_rows come
+// from ops/ivf_scan.py::k6_plan and k6_splits (split_rows <= 2048);
+// code_mult is a power of two and code_offset 0 or a power of two
+// (k6_check_codes). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a plan that does not fit the shape.
 extern "C" int itx_ivf_scan_topk(const void* q, const void* packed, const void* scales,
                                  const void* row_ids, const void* lists, const void* base, void* out_s,
                                  void* out_i, int B, int C, int nprobe, int D, int L, int G, int group_size,
                                  int bits, int k, int wide, int lanes_per_row, int words_per_lane, int passes,
                                  int splits, int split_rows, int code_mult, int code_offset,
                                  int track_positions, void* stream) {
-  if (split_rows > kMaxSplitRows || split_rows * splits < L) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-#define ITX_K6_LAUNCH(BITS_, WIDE_)                                                                         \
-  launch<BITS_, WIDE_>(q, packed, scales, row_ids, lists, base, out_s, out_i, B, C, nprobe, D, L, G,       \
-                       group_size, k, lanes_per_row, words_per_lane, passes, splits, split_rows, code_mult, \
-                       code_offset, track_positions, st)
+#define ITX_K6_LAUNCH(BITS_, WIDE_)                                                                        \
+  launch_topk<BITS_, WIDE_>(q, packed, scales, row_ids, lists, base, out_s, out_i, B, C, nprobe, k,       \
+                            track_positions, layout_of<BITS_, WIDE_>(D, L, G, group_size, lanes_per_row,  \
+                                                                     words_per_lane, passes, splits,      \
+                                                                     split_rows, code_mult, code_offset), \
+                            st)
   if (bits == 8) return wide ? ITX_K6_LAUNCH(8, true) : ITX_K6_LAUNCH(8, false);
   if (bits == 4) return wide ? ITX_K6_LAUNCH(4, true) : ITX_K6_LAUNCH(4, false);
 #undef ITX_K6_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7. q, packed, scales, row_ids and the plan as for K6; lists: int32 (B,
+// nprobe), each slot scanned as given (a repeat again; -1 gives only
+// (-inf, -1)); out_s/out_i: (B, nprobe, splits, t), each range's t best by
+// the residual dot alone (no base), best first, ids the flat positions
+// list * L + slot, (-inf, -1) past the occupied rows; 1 <= t <= 256.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a plan that does not fit the shape.
+extern "C" int itx_ivf_slot_topk(const void* q, const void* packed, const void* scales, const void* row_ids,
+                                 const void* lists, void* out_s, void* out_i, int B, int nprobe, int D, int L,
+                                 int G, int group_size, int bits, int t, int wide, int lanes_per_row,
+                                 int words_per_lane, int passes, int splits, int split_rows, int code_mult,
+                                 int code_offset, void* stream) {
+  if (t < 1 || t > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+#define ITX_K7_LAUNCH(BITS_, WIDE_)                                                                        \
+  launch_slot_topk<BITS_, WIDE_>(q, packed, scales, row_ids, lists, out_s, out_i, B, nprobe, t,           \
+                                 layout_of<BITS_, WIDE_>(D, L, G, group_size, lanes_per_row,              \
+                                                         words_per_lane, passes, splits, split_rows,      \
+                                                         code_mult, code_offset),                         \
+                                 st)
+  if (bits == 8) return wide ? ITX_K7_LAUNCH(8, true) : ITX_K7_LAUNCH(8, false);
+  if (bits == 4) return wide ? ITX_K7_LAUNCH(4, true) : ITX_K7_LAUNCH(4, false);
+#undef ITX_K7_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

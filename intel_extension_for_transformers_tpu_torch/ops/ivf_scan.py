@@ -10,16 +10,19 @@ empty). A row's score against a query is
 
 where the residual is rounded to bf16 as the JAX package's decode does, and
 the refine tier's hi-nibble plane decodes `code` as `16·hi + 8`
-(`code_mult`, `code_offset`). K6 (`csrc/ivf_scan_topk.cu`) streams each
-(query, distinct probed list) once as a GEMV of 16-byte words, decodes bf16
-pairs in registers, keeps the list's scores in shared memory and selects its
-top-k once; `itx_ivf_merge_topk` then ranks each query's candidates. K7
-(`csrc/ivf_scan.cu`) scores a list a warp a row and keeps each probe slot's
-top-t by a sort a tile. No (B, nprobe·L, D) decode ever reaches device
-memory. On the card K6 takes rows of whole 4-byte words (`k6_plan`: 16-byte
-words and a scale a word where the groups allow, 4-byte words and a scale a
-value where not) and the codes `k6_check_codes` accepts, and raises for
-others.
+(`code_mult`, `code_offset`). Both kernels are in `csrc/ivf_scan_topk.cu`
+and share everything up to the selection: a block per (query, probe slot,
+row range) streams its list once as a GEMV of 16-byte words, decodes bf16
+pairs in registers, keeps the range's scores in shared memory and
+radix-selects its best once. K6 skips a repeated probe, adds the base and
+writes its k best unordered, and `itx_ivf_merge_topk` ranks each query's
+candidates. K7 scans every slot, repeats too, selects by the base-free
+score, writes its t best first, and the base is added here; where a list
+is cut into ranges the merge ranks each slot's. No (B, nprobe·L, D) decode
+ever reaches device memory. On the card both take rows of whole 4-byte
+words (`k6_plan`: 16-byte words and a scale a word where the groups allow,
+4-byte words and a scale a value where not) and the codes `k6_check_codes`
+accepts, and raise for others.
 
 The contract is the JAX package's:
 
@@ -69,9 +72,8 @@ __all__ = [
     "ivf_scan_candidates_cuda",
 ]
 
-MAX_K = 256  # the merge's top-k lives in 2^ceil(log2(k + 256)) shared-memory slots
-_TILE = 256  # candidates the sort-a-tile kernels take between two merges (csrc/ivf_scan.cu kTile)
-_SMEM_LIMIT = 48 * 1024  # static launch limit: D·4 + slots·8 bytes (K7); K6's default
+MAX_K = 256  # the merge's top-k lives in 2^ceil(log2(k + 256)) slots; K7 ranks t keys a thread each
+_SMEM_LIMIT = 48 * 1024  # shared memory a block has without opting in
 _PLAIN_ELEMENTS = 1 << 27  # decoded elements per query block in the plain versions
 K6_MAX_SPLIT_ROWS = 2048  # list rows one K6 block takes (csrc/ivf_scan_topk.cu kMaxSplitRows)
 K6_SMEM_OPTIN = 224 * 1024  # K6's shared memory where q and its tables pass the default (H100: 227 KB a block)
@@ -351,36 +353,13 @@ def _cuda_inputs(q, packed, scales, row_ids, lists, k):
             lists.to(torch.int32).contiguous())
 
 
-def _launch_scan(q, packed, scales, row_ids, lists, base, *, k, bits, group_size,
-                 track_positions, code_mult, code_offset):
-    """All of K7 (`itx_ivf_scan_lists`, no base) → (B, nprobe, k) best-first
-    (score, id). With a base and `_merge_topk` it is also the earlier design
-    of K6, which `utils/profile_ivf.py` times beside K6; K6 never calls it."""
-    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
-
-    B, D = q.shape
-    W = packed.shape[2]
-    L = packed.shape[1]
-    nprobe = lists.shape[1]
-    qb, packed, scales, row_ids, lists = _cuda_inputs(q, packed, scales, row_ids, lists, k)
-    if W % 4 or packed.data_ptr() % 4:
-        raise ValueError(f"packed rows of {W} bytes are not whole, aligned 32-bit words")
-    slots = 1 << (k + _TILE - 1).bit_length()
-    if 4 * D + 8 * slots > _SMEM_LIMIT:
-        raise ValueError(f"dim {D} with k = {k} needs more than {_SMEM_LIMIT} bytes of shared memory")
-    out_s = torch.empty((B, nprobe, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, nprobe, k), dtype=torch.int32, device=q.device)
-    if B * nprobe == 0:
-        return out_s, out_i
-    status = load_kernels().itx_ivf_scan_lists(
-        qb.data_ptr(), packed.data_ptr(), scales.data_ptr(), row_ids.data_ptr(),
-        lists.data_ptr(), None if base is None else base.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), B, nprobe, D, L, D // group_size, group_size,
-        bits, k, code_mult, code_offset, int(track_positions),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(status, "itx_ivf_scan_lists")
-    return out_s, out_i
+def _k6_route(D, bits, group_size, packed):
+    """→ (K6Plan, splits, split_rows) of K6's and K7's launch for this
+    storage (`k6_plan`, `k6_splits`)."""
+    if packed.data_ptr() % 4:
+        raise ValueError("K6 and K7 read packed rows as 4- or 16-byte words: the storage must be 4-byte aligned")
+    plan = k6_plan(D, bits, group_size, packed.data_ptr() % 16 == 0)
+    return (plan, *k6_splits(packed.shape[1], plan))
 
 
 def _k6_scan(q, packed, scales, row_ids, probes, csims, *, k, bits, group_size,
@@ -396,11 +375,8 @@ def _k6_scan(q, packed, scales, row_ids, probes, csims, *, k, bits, group_size,
     C, L = packed.shape[:2]
     nprobe = probes.shape[1]
     qb, packed, scales, row_ids, probes = _cuda_inputs(q, packed, scales, row_ids, probes, k)
-    if packed.data_ptr() % 4:
-        raise ValueError("K6 reads packed rows as 4- or 16-byte words: the storage must be 4-byte aligned")
-    plan = k6_plan(D, bits, group_size, packed.data_ptr() % 16 == 0)
+    plan, splits, split_rows = _k6_route(D, bits, group_size, packed)
     k6_check_codes(bits, code_mult, code_offset)
-    splits, split_rows = k6_splits(L, plan)
     if csims.shape != (B, C) or csims.dtype != torch.float32 or not csims.is_contiguous():
         raise ValueError(f"csims must be ({B}, {C}) contiguous float32")
     out_s = torch.empty((B, nprobe * splits, k), dtype=torch.float32, device=q.device)
@@ -453,15 +429,48 @@ def ivf_scan_topk_cuda(q, centroids, packed, scales, row_ids, probes, *, k: int,
 ivf_scan_topk_cuda.launches = 0
 
 
+def _k7_scan(q, packed, scales, row_ids, probes, *, t, bits, group_size, code_mult, code_offset):
+    """K7's launch (`itx_ivf_slot_topk`): one block per (query, probe slot,
+    row range) → (B, nprobe, t) base-free scores and flat positions, each
+    slot's t best first, (-inf, -1) past its occupied rows; where a list is
+    cut into ranges, `_merge_topk` ranks each slot's `splits·t` candidates."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
+
+    B, D = q.shape
+    L = packed.shape[1]
+    nprobe = probes.shape[1]
+    qb, packed, scales, row_ids, probes = _cuda_inputs(q, packed, scales, row_ids, probes, t)
+    plan, splits, split_rows = _k6_route(D, bits, group_size, packed)
+    out_s = torch.empty((B * nprobe, splits * t), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B * nprobe, splits * t), dtype=torch.int32, device=q.device)
+    if B * nprobe == 0:
+        return out_s.view(B, nprobe, t), out_i.view(B, nprobe, t)
+    status = load_kernels().itx_ivf_slot_topk(
+        qb.data_ptr(), packed.data_ptr(), scales.data_ptr(), row_ids.data_ptr(), probes.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), B, nprobe, D, L, D // group_size, group_size, bits, t,
+        int(plan.wide), plan.lanes_per_row, plan.words_per_lane, plan.passes, splits, split_rows, code_mult,
+        code_offset, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(status, "itx_ivf_slot_topk")
+    if splits > 1:
+        out_s, out_i = _merge_topk(out_s, out_i, t)
+    return out_s.view(B, nprobe, t), out_i.view(B, nprobe, t)
+
+
 def ivf_scan_candidates_cuda(q, centroids, packed, scales, row_ids, probes, *, t: int, bits: int,
                              group_size: int, l_blk: int, code_mult: int = 1, code_offset: int = 0):
-    """Launch K7 on CUDA tensors: one block per (query, probe slot) keeps
-    that list's top-t by the base-free score; the base is added here."""
+    """Launch K7 on CUDA tensors: one block per (query, probe slot, row
+    range) keeps that slot's top-t by the base-free score (`_k7_scan`); the
+    base is added here. Raises, before any launch, for codes whose
+    `code·code_mult + code_offset` K6's and K7's decode cannot take exactly
+    (`k6_check_codes`: the callers pass only (1, 0) and the refine hi
+    plane's (16, 8)), for a plan that does not fit the rows (`k6_plan`) and
+    for tensors off the card."""
     _check_storage(q, packed, scales, row_ids, probes, bits, group_size, l_blk)
+    k6_check_codes(bits, code_mult, code_offset)
     csims = q.to(torch.float32) @ centroids.to(torch.float32).T
-    s, pos = _launch_scan(q, packed, scales, row_ids, probes, None, k=t, bits=bits,
-                          group_size=group_size, track_positions=True,
-                          code_mult=code_mult, code_offset=code_offset)
+    s, pos = _k7_scan(q, packed, scales, row_ids, probes, t=t, bits=bits, group_size=group_size,
+                      code_mult=code_mult, code_offset=code_offset)
     if probes.numel():
         ivf_scan_candidates_cuda.launches += 1
     return _add_base(s, pos, csims, probes)

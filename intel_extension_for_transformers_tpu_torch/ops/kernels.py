@@ -57,6 +57,10 @@ _SIGNATURES = {
     # D, L, G, group_size, bits, k, wide, lanes_per_row, words_per_lane,
     # passes, splits, split_rows, code_mult, code_offset, track_positions, stream
     "itx_ivf_scan_topk": (_P, _P, _P, _P, _P, _P, _P, _P) + (_I,) * 18 + (_P,),
+    # q, packed, scales, row_ids, probes, out_s, out_i, B, nprobe, D, L, G,
+    # group_size, bits, t, wide, lanes_per_row, words_per_lane, passes,
+    # splits, split_rows, code_mult, code_offset, stream
+    "itx_ivf_slot_topk": (_P,) * 7 + (_I,) * 16 + (_P,),
     # in_s, in_i, out_s, out_i, B, R, k, stream
     "itx_ivf_merge_topk": (_P, _P, _P, _P, _I, _I, _I, _P),
 }

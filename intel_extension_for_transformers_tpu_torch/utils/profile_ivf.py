@@ -67,8 +67,44 @@ KINDS = {
                      "k6_r64": dict(k=10, nprobe=8, rescore_r=64)}),
 }
 RUNS = 20  # searches behind each unprofiled mean
-# kernel names of the port's hand-written kernels, as the profiler shows them
-KERNELS = {"ivf_topk_kernel": "K6 scan", "ivf_merge_topk": "K6 merge", "ivf_scan_lists": "K7 scan"}
+# kernel names of the port's hand-written kernels, as the profiler shows them;
+# the merge also ranks K7's candidates where a list is cut into row ranges
+KERNELS = {"ivf_topk_kernel": "K6 scan", "ivf_merge_topk": "K6 merge", "ivf_slot_topk_kernel": "K7 scan",
+           "ivf_scan_lists": "earlier design"}
+_TILE = 256  # candidates the earlier design sorts in between two merges (csrc/ivf_scan.cu kTile)
+
+
+def _launch_scan(q, packed, scales, row_ids, lists, base, *, k, bits, group_size,
+                 track_positions, code_mult, code_offset):
+    """The earlier design of K6's and K7's scan (`itx_ivf_scan_lists`: a
+    warp a row, 32-bit words, a bitonic sort of the top-k after each 256-row
+    tile) → (B, nprobe, k) best-first (score, id); a slot of -1 gives only
+    (-inf, -1). A yardstick: the port never calls it."""
+    from intel_extension_for_transformers_tpu_torch.ops.kernels import check, load_kernels
+
+    B, D = q.shape
+    W = packed.shape[2]
+    L = packed.shape[1]
+    nprobe = lists.shape[1]
+    qb, packed, scales, row_ids, lists = ivf_scan._cuda_inputs(q, packed, scales, row_ids, lists, k)
+    if W % 4 or packed.data_ptr() % 4:
+        raise ValueError(f"packed rows of {W} bytes are not whole, aligned 32-bit words")
+    slots = 1 << (k + _TILE - 1).bit_length()
+    if 4 * D + 8 * slots > ivf_scan._SMEM_LIMIT:
+        raise ValueError(f"dim {D} with k = {k} needs more than {ivf_scan._SMEM_LIMIT} bytes of shared memory")
+    out_s = torch.empty((B, nprobe, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((B, nprobe, k), dtype=torch.int32, device=q.device)
+    if B * nprobe == 0:
+        return out_s, out_i
+    status = load_kernels().itx_ivf_scan_lists(
+        qb.data_ptr(), packed.data_ptr(), scales.data_ptr(), row_ids.data_ptr(),
+        lists.data_ptr(), None if base is None else base.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), B, nprobe, D, L, D // group_size, group_size,
+        bits, k, code_mult, code_offset, int(track_positions),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(status, "itx_ivf_scan_lists")
+    return out_s, out_i
 
 
 def yardstick_lists(q, centroids, probes):
@@ -83,14 +119,24 @@ def yardstick_scan_topk(q, centroids, packed, scales, row_ids, probes, *, k: int
                         l_blk: int, track_positions: bool = False, code_mult: int = 1, code_offset: int = 0):
     """The whole K6 call as its earlier design made it, a yardstick timed
     beside K6 (the port never calls it): deduplicated probes and their
-    bases, `itx_ivf_scan_lists` (a warp a row, 32-bit words, a bitonic sort
-    of the top-k after each 256-row tile), then the same merge."""
+    bases, `_launch_scan`, then the same merge."""
     ivf_scan._check_storage(q, packed, scales, row_ids, probes, bits, group_size, l_blk)
     lists, base = yardstick_lists(q, centroids, probes)
-    s1, i1 = ivf_scan._launch_scan(q, packed, scales, row_ids, lists, base, k=k, bits=bits,
-                                   group_size=group_size, track_positions=track_positions,
-                                   code_mult=code_mult, code_offset=code_offset)
+    s1, i1 = _launch_scan(q, packed, scales, row_ids, lists, base, k=k, bits=bits, group_size=group_size,
+                          track_positions=track_positions, code_mult=code_mult, code_offset=code_offset)
     return ivf_scan._merge_topk(s1.flatten(1), i1.flatten(1), k)
+
+
+def yardstick_scan_candidates(q, centroids, packed, scales, row_ids, probes, *, t: int, bits: int,
+                              group_size: int, l_blk: int, code_mult: int = 1, code_offset: int = 0):
+    """The whole K7 call as its earlier design made it, a yardstick timed
+    beside K7 (the port never calls it): `itx_ivf_scan_lists` with no base
+    and flat positions as ids, then the base added as K7's wrapper adds it."""
+    ivf_scan._check_storage(q, packed, scales, row_ids, probes, bits, group_size, l_blk)
+    csims = q.to(torch.float32) @ centroids.to(torch.float32).T
+    s, pos = _launch_scan(q, packed, scales, row_ids, probes, None, k=t, bits=bits, group_size=group_size,
+                          track_positions=True, code_mult=code_mult, code_offset=code_offset)
+    return ivf_scan._add_base(s, pos, csims, probes)
 
 
 def corpus(n: int, dev, n_queries: int = BATCH):

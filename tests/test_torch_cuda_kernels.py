@@ -884,6 +884,128 @@ def test_ivf_scan_topk_kernel_other_plans(dev, bits, D, group_size, misaligned, 
     _assert_ivf_match(got, want, IVF_TOL)
 
 
+_HI_CODES = dict(code_mult=16, code_offset=8)
+
+
+def _assert_k7_match(q, cent, packed, scales, rid, probes, t, **kw):
+    """K7 against its plain version, slot by slot and place by place."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    B, nprobe = probes.shape
+    kw = dict(t=t, bits=8 if packed.shape[2] == q.shape[1] else 4, l_blk=packed.shape[1], **kw)
+    kw.setdefault("group_size", 32)
+    before = ivf_scan.ivf_scan_candidates_cuda.launches
+    gs, gp = ivf_scan.ivf_scan_candidates_cuda(q, cent, packed, scales, rid, probes, **kw)
+    ws, wp = ivf_scan.ivf_scan_candidates_plain(q, cent, packed, scales, rid, probes, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.ivf_scan_candidates_cuda.launches == before + 1
+    assert gs.shape == gp.shape == (B, nprobe * t) and gp.dtype == torch.int32
+    _assert_ivf_match((gs.reshape(-1, t), gp.reshape(-1, t)), (ws.reshape(-1, t), wp.reshape(-1, t)), IVF_TOL)
+    return gs, gp
+
+
+@pytest.mark.parametrize("case,bits,t,C,D,L_pad,fill_rows,B,nprobe,extra", [
+    ("t 1", 4, 1, 64, 768, 1536, 1220, 64, 8, _HI_CODES),
+    ("t 250", 8, 250, 64, 768, 1536, 1220, 64, 8, {}),
+    ("t 250 hi plane", 4, 250, 64, 768, 1536, 1220, 64, 8, _HI_CODES),
+    ("t past the occupied rows", 8, 64, 32, 768, 256, 40, 16, 4, {}),
+    ("t past the occupied rows", 4, 250, 32, 768, 256, 200, 16, 4, _HI_CODES),
+    ("L 4096: two row ranges", 8, 24, 16, 768, 4096, 3900, 16, 4, {}),
+    ("L 4096: two row ranges, t 250", 4, 250, 16, 768, 4096, 4000, 16, 4, _HI_CODES),
+    ("L 5120: three row ranges", 4, 24, 16, 768, 5120, 5000, 16, 4, _HI_CODES),
+    ("lists with no occupied row", 8, 24, 32, 768, 1536, 1220, 16, 4, {"empty_lists": 3}),
+    ("empty slots scattered in a list", 4, 24, 32, 768, 1536, 1536, 16, 4, {"scatter": True, **_HI_CODES}),
+    ("512 distinct lists", 4, 24, 512, 768, 1536, 1220, 64, 8, {"distinct": True, **_HI_CODES}),
+    ("512 distinct lists", 8, 24, 512, 768, 1536, 1220, 64, 8, {"distinct": True}),
+])
+def test_ivf_scan_candidates_kernel_shapes(dev, case, bits, t, C, D, L_pad, fill_rows, B, nprobe, extra):
+    """K7 (`ivf_slot_topk_kernel`) at the edges of its plan: t at both ends
+    and past a list's occupied rows, lists cut into row ranges (ranked by
+    the merge), lists with no row, scattered empty slots, a repeated probe
+    (its list's candidates again), one list a probe."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    kw = {key: extra[key] for key in ("code_mult", "code_offset") if key in extra}
+    built = {key: extra[key] for key in ("scatter", "empty_lists", "distinct") if key in extra}
+    q, cent, packed, scales, rid, probes = _ivf_k6_case(dev, C, D, L_pad, fill_rows, bits, B, nprobe,
+                                                        seed=C + D + t + 7, **built)
+    plan = ivf_scan.k6_plan(D, bits, 32)
+    assert ivf_scan.k6_splits(L_pad, plan)[0] == (1 if L_pad <= 2048 else -(-L_pad // 2048))
+    gs, gp = _assert_k7_match(q, cent, packed, scales, rid, probes, t, **kw)
+    if not built.get("distinct"):  # a repeated probe repeats its list's candidates
+        gp = gp.reshape(B, nprobe, t)
+        assert torch.equal(gp[:, 0], gp[:, 1])
+
+
+@pytest.mark.parametrize("bits,D,group_size,misaligned,kw", [
+    (8, 96, 32, False, {}),  # two lanes a row
+    (8, 1536, 32, False, {}),  # a warp a row
+    (8, 4096, 32, False, {}),  # three passes a row
+    (8, 11264, 32, False, {}),  # q and its tables pass 48 KB of shared memory
+    (4, 768, 16, False, _HI_CODES),  # two groups in a 16-byte word: 4-byte words, a scale a value
+    (8, 768, 24, False, {}),  # words straddle groups
+    (8, 100, 4, False, {}),  # rows of 25 4-byte words
+    (8, 4096, 8, False, {}),  # 4-byte words in eight passes, rows in two ranges
+    (8, 768, 32, True, {}),  # storage 4 bytes past a 16-byte boundary
+    (4, 768, 32, True, _HI_CODES),
+])
+def test_ivf_scan_candidates_kernel_other_plans(dev, bits, D, group_size, misaligned, kw):
+    """K7 on the plans off the 10M configuration's: other widths, groups
+    smaller than a word or straddled by one, rows of 4-byte words, storage
+    off a 16-byte boundary."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    C, L_pad, B, nprobe = (8, 512, 4, 3) if D > 4096 else (16, 512, 16, 4)
+    cent, packed, scales, rid = _ivf_storage(dev, C, D, L_pad, 400, bits, seed=D + group_size + 1,
+                                             group_size=group_size)
+    if misaligned:
+        buf = torch.empty(packed.numel() + 4, dtype=torch.int8, device=dev)
+        buf[4:] = packed.flatten()
+        packed = buf[4:].view(packed.shape)
+    plan = ivf_scan.k6_plan(D, bits, group_size, packed.data_ptr() % 16 == 0)
+    assert plan.wide == (not misaligned and group_size % (128 // bits) == 0 and D * bits % 128 == 0)
+    q, probes = _ivf_queries(dev, cent, B, nprobe, seed=D + 1)
+    _assert_k7_match(q, cent, packed, scales, rid, probes, 24, group_size=group_size, **kw)
+
+
+@pytest.mark.parametrize("bits,kw", [(8, {}), (4, _HI_CODES)])
+def test_ivf_scan_candidates_kernel_is_deterministic(dev, bits, kw):
+    """Two runs of K7 give the same bits, with and without row ranges."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    for L_pad, fill in ((1536, 1220), (4096, 3900)):
+        q, cent, packed, scales, rid, probes = _ivf_k6_case(dev, 32, 768, L_pad, fill, bits, 32, 8, seed=6)
+        kw2 = dict(t=24, bits=bits, group_size=32, l_blk=L_pad, **kw)
+        a = ivf_scan.ivf_scan_candidates_cuda(q, cent, packed, scales, rid, probes, **kw2)
+        b = ivf_scan.ivf_scan_candidates_cuda(q, cent, packed, scales, rid, probes, **kw2)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("fault", ["scales one group late", "hi plane nibbles swapped"])
+def test_ivf_scan_candidates_kernel_rejects_planted_faults(dev, fault):
+    """The bar above sees a fault in K7's inputs: the scales shifted by one
+    group (int8), the hi plane's nibbles swapped."""
+    from intel_extension_for_transformers_tpu_torch.ops import ivf_scan
+
+    bits = 8 if fault.startswith("scales") else 4
+    cent, packed, scales, rid = _ivf_storage(dev, 16, 768, 1536, 1220, bits, seed=8)
+    q, probes = _ivf_queries(dev, cent, 8, 4, seed=8)
+    kw = dict(t=24, bits=bits, group_size=32, l_blk=1536, **({} if bits == 8 else _HI_CODES))
+    bad_packed, bad_scales = packed, scales
+    if bits == 8:
+        bad_scales = torch.roll(scales, 1, dims=2)
+    else:
+        p = packed.to(torch.int32) & 0xFF
+        p = ((p & 0xF) << 4) | (p >> 4)
+        bad_packed = torch.where(p >= 128, p - 256, p).to(torch.int8)
+    gs, gp = ivf_scan.ivf_scan_candidates_cuda(q, cent, bad_packed, bad_scales, rid, probes, **kw)
+    ws, wp = ivf_scan.ivf_scan_candidates_plain(q, cent, packed, scales, rid, probes, **kw)
+    with pytest.raises(AssertionError):
+        _assert_ivf_match((gs.reshape(-1, 24), gp.reshape(-1, 24)), (ws.reshape(-1, 24), wp.reshape(-1, 24)),
+                          IVF_TOL)
+
+
 @pytest.mark.parametrize("dim,kw", [(1536, dict(dtype="int8")), (768, dict(dtype="int4", group_size=16)),
                                     (768, dict(dtype="int4", group_size=16, refine="int8"))])
 def test_ivf_index_kernel_route_at_other_widths(dev, dim, kw):

@@ -1,7 +1,9 @@
-"""K6's design in plain Python (`ops/ivf_scan.py`): the bf16 steps of its
-decode, its lane plan, its row ranges and the codes it takes.
+"""K6's and K7's design in plain Python (`ops/ivf_scan.py`): the bf16 steps
+of their decode, their lane plan, their row ranges (and that K7's per-range
+top-t, merged, is each slot's top-t), the codes they take, and that K7's
+wrapper raises off the card.
 
-The kernel (`csrc/ivf_scan_topk.cu`) runs only on the card. Its decode is
+The kernels (`csrc/ivf_scan_topk.cu`) run only on the card. Its decode is
 emulated here step by step on 32-bit words, as the kernel does it: bit
 operations for the exact bf16 integer, then `fma.rn.bf16x2`, whose product
 and sum are exact and which rounds once to bf16 (emulated as f32 arithmetic,
@@ -207,3 +209,90 @@ def test_k6_check_codes(bits, mult, offset, ok):
     else:
         with pytest.raises(ValueError, match="inexactly"):
             tscan.k6_check_codes(bits, mult, offset)
+
+
+def _slot_scores(L, D, bits, group_size, t, *, C=3, B=2, nprobe=4, seed=0):
+    """Base-free scores and flat positions (B, nprobe, L) of random codes
+    through the plain version's own scoring (`_list_scores`), each query
+    probing its first list again at its last slot, a third of the slots
+    empty; then ties planted at each slot's t-th score."""
+    gen = torch.Generator().manual_seed(seed)
+    W = D // 2 if bits == 4 else D
+    packed = torch.randint(-128, 128, (C, L, W), generator=gen).to(torch.int8)
+    scales = (torch.rand(C, L, D // group_size, generator=gen) * 0.02 + 0.01).to(torch.bfloat16)
+    row_ids = torch.arange(C * L, dtype=torch.int32).reshape(C, L)
+    row_ids[torch.rand(C, L, generator=gen) < 1 / 3] = -1
+    q = torch.randn(B, D, generator=gen).to(torch.bfloat16).to(torch.float32)
+    probes = torch.randint(0, C, (B, nprobe), generator=gen)
+    probes[:, -1] = probes[:, 0]
+    s, pos = tscan._list_scores(q, probes, packed, scales, row_ids, bits=bits, group_size=group_size,
+                                code_mult=16 if bits == 4 else 1, code_offset=8 if bits == 4 else 0,
+                                track_positions=True)
+    kth = torch.sort(s, dim=-1, descending=True).values[..., t - 1 : t]
+    tie = (torch.rand(C, L, generator=gen) < 0.01)[probes] & torch.isfinite(s)  # a repeat, its ties too
+    return torch.where(tie, kth.expand_as(s), s), pos
+
+
+@pytest.mark.parametrize("t", [1, 24, 250])
+@pytest.mark.parametrize("L,D,bits,group_size,splits", [
+    (4096, 768, 8, 32, 2),
+    (5120, 768, 4, 32, 3),
+    (1536, 4096, 8, 8, 2),  # q and its tables leave room for 1,109 rows a range
+])
+def test_range_topk_merged_is_the_slot_topk(L, D, bits, group_size, splits, t):
+    """K7's row ranges (`k6_splits`): each range's top-t, merged as
+    `itx_ivf_merge_topk` ranks them, is the slot's top-t, bit for bit, with
+    ties at the t-th score and a repeated probe (which repeats its list's
+    candidates)."""
+    plan = tscan.k6_plan(D, bits, group_size)
+    n, rows = tscan.k6_splits(L, plan)
+    assert n == splits
+    s, pos = _slot_scores(L, D, bits, group_size, t, seed=L + D + t)
+    want = tscan._best_first(s, pos, t)
+    assert bool(((s == want[0][..., -1:]).sum(-1) > 1).all())  # ties at the t-th score
+    parts = [tscan._best_first(s[..., r:r + rows], pos[..., r:r + rows], t) for r in range(0, L, rows)]
+    got = tscan._best_first(torch.cat([p[0] for p in parts], -1), torch.cat([p[1] for p in parts], -1), t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(want[0][:, 0], want[0][:, -1]) and torch.equal(want[1][:, 0], want[1][:, -1])
+    fin = torch.isfinite(want[0])
+    assert bool(((want[0][..., :-1] >= want[0][..., 1:]) | ~fin[..., 1:]).all())  # best first
+
+
+def _cpu_args(bits=8):
+    gen = torch.Generator().manual_seed(1)
+    C, L, D = 4, 128, 64
+    q = torch.nn.functional.normalize(torch.randn(3, D, generator=gen), dim=1)
+    cent = torch.nn.functional.normalize(torch.randn(C, D, generator=gen), dim=1)
+    packed = torch.randint(-128, 128, (C, L, D // 2 if bits == 4 else D), generator=gen).to(torch.int8)
+    scales = torch.full((C, L, D // 32), 0.01).to(torch.bfloat16)
+    row_ids = torch.arange(C * L, dtype=torch.int32).reshape(C, L)
+    probes = torch.tensor([[0, 1], [2, 2], [3, 0]], dtype=torch.int32)
+    return q, cent, packed, scales, row_ids, probes
+
+
+def test_candidates_cuda_raises_on_cpu_tensors():
+    """K7's wrapper launches or raises: CPU tensors go to the plain version
+    only through the dispatcher, which launches nothing."""
+    from intel_extension_for_transformers_tpu_torch.utils import profile_ivf
+
+    args = _cpu_args()
+    kw = dict(t=8, bits=8, group_size=32, l_blk=128)
+    before = tscan.ivf_scan_candidates_cuda.launches
+    s, pos = tscan.ivf_scan_candidates(*args, **kw)
+    assert s.shape == pos.shape == (3, 16) and tscan.ivf_scan_candidates_cuda.launches == before
+    for fn in (tscan.ivf_scan_candidates_cuda, profile_ivf.yardstick_scan_candidates):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args, **kw)
+    assert tscan.ivf_scan_candidates_cuda.launches == before
+
+
+@pytest.mark.parametrize("bits,mult,offset", [(4, 3, 0), (4, 16, 5), (8, 4, 1)])
+def test_candidates_cuda_raises_for_codes_it_cannot_decode(bits, mult, offset):
+    """Codes `k6_check_codes` refuses raise before any launch (the plain
+    version takes them)."""
+    args = _cpu_args(bits)
+    kw = dict(t=8, bits=bits, group_size=32, l_blk=128, code_mult=mult, code_offset=offset)
+    with pytest.raises(ValueError, match="inexactly"):
+        tscan.ivf_scan_candidates_cuda(*args, **kw)
+    s, _ = tscan.ivf_scan_candidates_plain(*args, **kw)
+    assert s.shape == (3, 16)
