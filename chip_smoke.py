@@ -43,6 +43,17 @@ kernel against its plain PyTorch version on the card:
      planned); the two held against each other product by product and
      at the first step's logits, and again with faults planted in the w32
      weights, which the bars must reject;
+ 5s. serving, on the khalf model before its w32 repack: the port's
+     DecodeEngine over 16 RAG prompts (phase 3's 8 and 8 more), 32 greedy
+     tokens each, (a) bf16 KV in 8 slots (8 requests queue), (b) int8 KV in
+     16 slots at horizon 4 with the QA template's head warmed in the prefix
+     cache, (c) NeuralChatServerExecutor on 127.0.0.1 over (a)'s config
+     (a chat, a streamed chat and a completion request, each the engine's
+     tokens and text); every emitted token held by teacher forcing (one
+     no-cache forward over prompt + tokens, SERVE_DELTA), and a slot cache
+     inserted one pool row off must fail that bar; tokens/s, TTFT p50/p99,
+     pool steps, chunks, peak memory, and a few pool steps profiled (ms,
+     launches and the device's busy share a step);
   6. scoring: evaluate_perplexity over 4 windows of 2048 byte tokens on the
      w32 model (K4 in every layer, K3 in every product), and one window held
      against the plain-attention forward, and again with a fault planted in
@@ -69,8 +80,8 @@ Each kernel wrapper counts its launches (K1, K2, K3 and K5 also those on
 the tensor cores: the khalf prefill and the B = 16 search run K1's tiles,
 the w32 prefill and scoring K3's, the int8 prefill K2's, the flat search at
 B >= 64 K5's). The counts are zeroed just before
-each main-path phase (3-4, 5's generations, 6, 7, 8's reload and
-generations) and read just after it, and
+each main-path phase (3-4, 5's generations, 5s's runs (a), (b) and (c),
+6, 7, 8's reload and generations) and read just after it, and
 every kernel must have launched on the main path. The line before the last
 is a JSON object of the kernels' numbers; the last line is {"ok": true,
 "device": {...}}. Any failed check raises, and the script exits non-zero
@@ -104,6 +115,17 @@ QUERIES = [
     "How does the serving engine batch requests?",
     "What does the bf16 shadow copy of the index buy?",
 ]
+# 8 more questions for the serving phase: with QUERIES, its 16 RAG prompts
+SERVE_QUERIES = [
+    "How is a prefill chunk written into the cache?",
+    "What does the prefix cache store?",
+    "How are int8 keys and values quantized?",
+    "Which kernel runs the decode products?",
+    "How does the server stream tokens?",
+    "What is measured on the card for each kernel?",
+    "How are the search results reranked?",
+    "What does chip_smoke.py check?",
+]
 NEW_TOKENS = 32  # per chat request
 SCORE_WINDOW = 2048  # tokens per perplexity window
 SCORE_WINDOWS = 4
@@ -122,6 +144,15 @@ SCORE_WINDOWS = 4
 # each route; the product bar must reject the w32 ones, the logit bars the
 # flash one. Phase 8 holds each int8 product (K2) to the same product bar
 # against the exactly dequantized f32 weights.
+# The serving phase holds every token the engine emits by teacher forcing: one
+# no-cache forward over prompt + emitted tokens, where the engine's token at
+# each emitted position must have a logit within SERVE_DELTA of that row's
+# largest (as a share of the row's max |logit|). The engine's rows come from
+# other shapes (K1's tiles at M = 8 or 16 and chunks of 128 or 64, bf16 or
+# int8 KV) than the forward's (M = the whole sequence), so near-ties may
+# flip, by a gap that rounding bounds; a slot cache inserted into the wrong
+# pool row (the planted fault) must exceed it.
+SERVE_DELTA = 0.1
 LOGIT_COS_BAR = 0.995
 LOGIT_REL_BAR = 0.12
 PRODUCT_BAR = 1e-2
@@ -432,6 +463,277 @@ def ivf_phase(torch, dev, n: int) -> None:
             check(diff is None, f"int8 kernel route vs materializing route: {diff}")
         del idx
         torch.cuda.empty_cache()
+
+
+def serving_phase(torch, np, dev, card, bot, lcfg, tok, prompts, zero_counts, add_counts) -> None:
+    """The serving slice on phase 5's khalf Llama-2-7B: (a) a bf16-KV pool of
+    8 slots, (b) an int8-KV pool of 16 slots at horizon 4 with a warmed
+    prefix, 16 RAG requests each; (c) the HTTP server over (a)'s config.
+    Every emitted token is held by teacher forcing, and a planted fault must
+    fail that check. Each measured line carries `card` (nvidia-smi's name
+    and power limit)."""
+    import threading
+    from http.client import HTTPConnection
+
+    from intel_extension_for_transformers_tpu_torch.models import engine as engine_module
+    from intel_extension_for_transformers_tpu_torch.models.engine import DecodeEngine, EngineRequest
+    from intel_extension_for_transformers_tpu_torch.models.generation import detokenize_stream
+    from intel_extension_for_transformers_tpu_torch.models.llama import llama_apply
+    from intel_extension_for_transformers_tpu_torch.neural_chat.server import NeuralChatServerExecutor
+    from intel_extension_for_transformers_tpu_torch.ops.quant_matmul import woq_int4_cuda
+    from intel_extension_for_transformers_tpu_torch.retrieval.agent import QA_PROMPT_TEMPLATE
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import profiled
+
+    model = bot.params
+    ids = [np.asarray(tok.encode(p), np.int32) for p in prompts]
+    eos = tok.eos_token_id
+    a_cfg = dict(max_slots=8, max_len=1024, prefill_chunk=128)
+    # the restore point is chunk-aligned: the template's 126-token head
+    # restores 64 rows at C = 64 and none at 128
+    # (b) admits 8 at a time: at horizon 4 a pool dispatch is 4 steps, and
+    # two admissions a dispatch left the slots waiting (PERF.md §6)
+    b_cfg = dict(max_slots=16, max_len=1024, prefill_chunk=64, kv_dtype="int8", decode_horizon=4, prefix_cache=4,
+                 max_admissions=8)
+    print(f"serving: {len(ids)} RAG prompts of {min(map(len, ids))}-{max(map(len, ids))} tokens, "
+          f"{NEW_TOKENS} greedy tokens each")
+
+    def run_pool(eng, requests, new_tokens=NEW_TOKENS):
+        """Submit every request at once → (tokens, submit, token times) each, and the wall time."""
+        out = [{"tokens": [], "times": []} for _ in requests]
+
+        def consume(i, req):
+            try:
+                for t in req.tokens():
+                    out[i]["times"].append(time.perf_counter())
+                    out[i]["tokens"].append(t)
+            except RuntimeError as e:  # a dead engine: the fatal_error check below reports it
+                out[i]["error"] = repr(e)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = []
+        for i, p in enumerate(requests):
+            out[i]["submit"] = time.perf_counter()
+            req = eng.submit(EngineRequest(p, max_new_tokens=new_tokens, eos_token_id=eos))
+            threads.append(threading.Thread(target=consume, args=(i, req)))
+            threads[-1].start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(eng.fatal_error is None, f"the engine's step thread is alive ({eng.fatal_error!r})")
+        check(all(0 < len(r["tokens"]) <= new_tokens for r in out), "every request got its tokens")
+        return out, wall
+
+    def teacher_gaps(requests, out, new_tokens=NEW_TOKENS):
+        """→ per request, the largest (row max - logit of the engine's token) /
+        row max |logit| over its emitted positions, and the share of exact
+        argmax. A request that ended before NEW_TOKENS ended on EOS: the row
+        after its last token must pick EOS."""
+        gaps, exact = [], []
+        for p, rec in zip(requests, out):
+            picked = rec["tokens"] + ([eos] if len(rec["tokens"]) < new_tokens else [])
+            seq = np.concatenate([p, np.asarray(rec["tokens"], np.int32)])
+            logits, _ = llama_apply(model, lcfg, torch.tensor(seq[None].astype(np.int64), device=dev))
+            rows = logits[0, len(p) - 1: len(p) - 1 + len(picked)].float()  # the rows that picked each token
+            tok_t = torch.tensor(picked, device=dev)
+            chosen = rows.gather(1, tok_t[:, None])[:, 0]
+            top = rows.max(dim=1).values
+            gap = (top - chosen) / rows.abs().max(dim=1).values
+            gaps.append(float(gap.max()))
+            exact.append(float((chosen == top).float().mean()))
+        return gaps, exact
+
+    def report(name, eng, requests, out, wall):
+        n_tok = sum(len(r["tokens"]) for r in out)
+        ttft = sorted((r["times"][0] - r["submit"]) * 1e3 for r in out)
+        st = eng.stats()
+        t0 = time.perf_counter()
+        gaps, exact = teacher_gaps(requests, out)
+        tf_s = time.perf_counter() - t0
+        row = {"card": card, "run": name, "requests": len(out), "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+               "ttft_ms_p50": float(np.percentile(ttft, 50)), "ttft_ms_p99": float(np.percentile(ttft, 99)),
+               "pool_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
+               "prefix_cache_hits": st["prefix_cache_hits"], "prefix_tokens_reused": st["prefix_tokens_reused"],
+               "teacher_gap_max": max(gaps), "teacher_exact_share": float(np.mean(exact)), "teacher_s": tf_s,
+               "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2**30}
+        print("serving " + json.dumps(row))
+        return row
+
+    def pool_step_profile(name, eng, steps=4):
+        """`steps` pool steps of the idle engine's state: wall ms a step, then
+        profiled: device busy ms a step, the busy share and the launches a
+        step (the profiler's own cost is in its wall time, not in the first)."""
+        args = (model, lcfg, eng._cache, eng._tokens, eng._generator, *eng._device_knobs(), eng._seen,
+                eng._guide, eng._accum)
+        H = eng.decode_horizon
+
+        def burst():
+            for _ in range(steps // H):
+                toks = engine_module._engine_step_multi(*args, H, False)[0]
+                toks.cpu()
+
+        burst()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        burst()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        rec = profiled(burst)
+        row = {"card": card, "run": name, "slots": eng.max_slots, "horizon": H, "ms_per_pool_step": ms,
+               "ms_per_pool_step_profiled": rec["wall_ms"] / steps,
+               "device_busy_ms_per_step": rec["device_busy_ms"] / steps,
+               "device_busy_share": rec["device_busy_share"],
+               "launches_per_pool_step": rec["kernel_launches"] / steps,
+               "device_ms_per_step_by_kernel": {k: v / steps for k, v in rec["device_ms_by_kernel"].items()},
+               "top": rec["top"][:6]}
+        print("pool step " + json.dumps(row))
+        return row
+
+    # ---- (a) bf16 KV, 8 slots, horizon 1: 8 requests queue and join as slots free ----
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    eng_a = DecodeEngine(model, lcfg, **a_cfg).start()
+    out_a, wall_a = run_pool(eng_a, ids)
+    ca = add_counts("serving (a)")
+    t_mark = time.perf_counter()
+    eng_a.stop()
+    check(ca["woq_int4_tiles"] > 0 and ca["woq_w32"] == 0, "K1's tensor-core tiles ran in run (a), K3 not")
+    row_a = report("a: bf16 KV, 8 slots", eng_a, ids, out_a, wall_a)
+    pool_step_profile("a", eng_a)
+    print(f"serving (a): checks and profile in {time.perf_counter() - t_mark:.1f} s")
+    del eng_a
+    torch.cuda.empty_cache()
+
+    # ---- (b) int8 KV, 16 slots, horizon 4, the template's head warmed ----
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    eng_b = DecodeEngine(model, lcfg, **b_cfg).start()
+    head = QA_PROMPT_TEMPLATE.split("{context}")[0]
+    warm_rows = eng_b.warm_prefix(tok.encode(head))
+    out_b, wall_b = run_pool(eng_b, ids)
+    cb = add_counts("serving (b)")
+    t_mark = time.perf_counter()
+    eng_b.stop()
+    check(cb["woq_int4_tiles"] > 0, "K1's tensor-core tiles ran in run (b)")
+    row_b = report(f"b: int8 KV, 16 slots, horizon 4, {warm_rows} warm rows", eng_b, ids, out_b, wall_b)
+    check(row_b["prefix_cache_hits"] > 0 and row_b["prefix_tokens_reused"] > 0, "run (b) reused the warm prefix")
+    pool_step_profile("b", eng_b)
+    print(f"serving (b): checks and profile in {time.perf_counter() - t_mark:.1f} s")
+    del eng_b
+    torch.cuda.empty_cache()
+
+    # ---- (c) HTTP over (a)'s config: chat, chat SSE, completions ----
+    zero_counts()
+    executor = NeuralChatServerExecutor()
+    check(executor.init({
+        "host": "127.0.0.1", "port": 0, "model_name_or_path": "Llama-2-7b-chat (random weights)",
+        "loading_config": {"preloaded": (model, lcfg, tok)},
+        "generation_config": {"max_new_tokens": NEW_TOKENS, "do_sample": False, "repetition_penalty": 1.0},
+        "serving_config": {"continuous_batching": True, **a_cfg},
+    }), "the server executor started")
+    served = {}  # each HTTP request's engine tokens, by its prompt
+    real_submit = executor.app._engine_submit
+
+    def recording_submit(query, *args, **kw):
+        req = real_submit(query, *args, **kw)
+        rec, gen = [], req.tokens
+        served[query] = rec
+
+        def tokens():
+            for t in gen():
+                rec.append(t)
+                yield t
+
+        req.tokens = tokens
+        return req
+
+    executor.app._engine_submit = recording_submit
+    executor.run(block=False)
+
+    def post(path, body):
+        conn = HTTPConnection("127.0.0.1", executor.port, timeout=600)
+        conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    def engine_text(i):
+        return "".join(detokenize_stream((np.array([t]) for t in out_a[i]["tokens"]), tok))
+
+    def chat(i):
+        status, data = post("/v1/chat/completions", {"messages": [{"role": "user", "content": prompts[i]}]})
+        check(status == 200, f"chat completion: {status}")
+        return json.loads(data)["choices"][0]["message"]["content"]
+
+    def chat_sse(i):
+        status, data = post("/v1/chat/completions", {"messages": [{"role": "user", "content": prompts[i]}],
+                                                     "stream": True})
+        check(status == 200, f"chat completion, SSE: {status}")
+        events = [ln[len("data: "):] for ln in data.decode().splitlines() if ln.startswith("data: ")]
+        check(events[-1] == "[DONE]", "the SSE stream ends in [DONE]")
+        return "".join(c["choices"][0]["delta"].get("content") or "" for c in map(json.loads, events[:-1]))
+
+    def complete(i):
+        status, data = post("/v1/completions", {"prompt": prompts[i]})
+        check(status == 200, f"completion: {status}")
+        return json.loads(data)["choices"][0]["text"]
+
+    # the three at once, so the pool batches them; each records its engine tokens by prompt
+    got, errors = [None] * 3, []
+
+    def call(i, fn):
+        try:
+            got[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 — reported by the check below
+            errors.append(repr(e))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i, fn)) for i, fn in enumerate((chat, chat_sse, complete))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(not errors, f"the HTTP requests: {errors}")
+        http_s = time.perf_counter() - t0
+        check(executor.engine.fatal_error is None, "the server's engine thread is alive")
+        stats = executor.engine.stats()
+    finally:
+        executor.stop()
+    cc = add_counts("serving (c)")
+    same_tokens = [served.get(prompts[i]) == out_a[i]["tokens"] for i in range(3)]
+    same_text = [got[i] == engine_text(i) for i in range(3)]
+    print("serving http " + json.dumps({"card": card, "requests": 3, "seconds": http_s, "same_tokens_as_a": same_tokens,
+                                        "same_text_as_a": same_text, "text_chars": [len(t) for t in got],
+                                        "engine": {k: stats[k] for k in ("decode_steps", "total_tokens",
+                                                                        "completed_requests")}}))
+    check(len(served) == 3 and all(same_tokens) and all(same_text),
+          "each HTTP response carries the engine's tokens and text for its prompt")
+    check(cc["woq_int4_tiles"] > 0, "K1's tensor-core tiles ran in run (c)")
+
+    # ---- the planted fault: a finished admission's cache copied into the next pool row ----
+    t_mark = time.perf_counter()
+    real_insert = engine_module._insert_slot
+
+    def wrong_row(pool, slot_cache, slot, seen_all, seen_row):
+        return real_insert(pool, slot_cache, (slot + 1) % pool.length.shape[0], seen_all, seen_row)
+
+    engine_module._insert_slot = wrong_row
+    try:
+        eng_f = DecodeEngine(model, lcfg, **a_cfg).start()
+        out_f, _ = run_pool(eng_f, ids[:4], new_tokens=8)
+        eng_f.stop()
+    finally:
+        engine_module._insert_slot = real_insert
+    gaps_f, _ = teacher_gaps(ids[:4], out_f, new_tokens=8)
+    print(f"planted fault, slot caches inserted one pool row off: teacher-forcing gaps "
+          f"{[round(g, 4) for g in gaps_f]} (bar {SERVE_DELTA}); {time.perf_counter() - t_mark:.1f} s")
+    for row in (row_a, row_b):
+        check(row["teacher_gap_max"] <= SERVE_DELTA, f"run {row['run']}: every token within {SERVE_DELTA} of its "
+                                                     f"row's top logit by teacher forcing")
+    check(max(gaps_f) > SERVE_DELTA, "the teacher-forcing bar rejects the planted fault")
+    del eng_f
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1196,6 +1498,12 @@ def main() -> int:
     check(len(products) == n_woq, f"the first step ran {len(products)} int4 products")
     logits_khalf_1 = first_logits(probe, depth=1)
     logits_exact = first_logits(probe, exact_weights=True)
+
+    # ---- phase 5s: the serving engine and server on the khalf model (K1) ----
+    serve_prompts = prompts + [agent.pre_llm_inference_actions(q) for q in SERVE_QUERIES]
+    t0 = time.perf_counter()
+    serving_phase(torch, np, dev, card, bot, lcfg, tok, serve_prompts, zero_counts, add_counts)
+    print(f"phase 5s in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     prepare_for_inference(bot.params)

@@ -6,6 +6,7 @@ from intel_extension_for_transformers_tpu_torch.models.bert import (
     bert_encode,
     bert_init_params,
 )
+from intel_extension_for_transformers_tpu_torch.models.engine import DecodeEngine, EngineRequest
 from intel_extension_for_transformers_tpu_torch.models.generation import (
     SamplingConfig,
     generate,
@@ -47,6 +48,7 @@ def __getattr__(name):
 __all__ = [
     "BertConfig", "BertModel", "bert_apply", "bert_config_from_hf", "bert_encode", "bert_init_params",
     "KVCache", "LlamaConfig", "LlamaModel", "init_kv_cache", "llama_apply", "llama_config_from_hf",
-    "llama_init_params", "SamplingConfig", "generate", "generate_compiled", "generate_stream",
+    "llama_init_params", "DecodeEngine", "EngineRequest", "SamplingConfig", "generate", "generate_compiled",
+    "generate_stream",
     *_LAZY,
 ]

@@ -9,9 +9,11 @@ the transpose of the JAX `kernel`); after quantization they are
 `WOQLinear`, whose int4 products run K1 (khalf) or K3 (w32).
 
 - **KV cache**: preallocated (B, S_max, Hkv, D) buffers per layer and a
-  fill `length` (an int, or a (B,) tensor of per-row lengths). The port
-  writes new rows into the buffers in place, where the JAX package returns
-  new arrays; the returned `KVCache` shares the buffers with its new length.
+  fill `length` (an int, or a (B,) tensor of per-row lengths: the serving
+  engine's pool). The port writes new rows into the buffers in place, where
+  the JAX package returns new arrays; the returned `KVCache` shares the
+  buffers with its new length. Writes keep the JAX bounds rules: an int
+  start is clamped into the cache, per-row rows past its end are dropped.
 - **Attention routing** follows the JAX package: a forward with a cache, a
   mask or a sliding window runs `ops.layers.attention` over masked logits; a
   no-cache, unmasked, global forward of T >= 1024 runs
@@ -305,26 +307,55 @@ def _kv_quantize(t: torch.Tensor):
     / 127 is a product with the f32 reciprocal, as XLA compiles the JAX
     package's division by a constant; the codes then match bit for bit."""
     tf = t.to(torch.float32)
-    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=t.device)
+    inv127 = torch.full((), 1.0 / 127.0, dtype=torch.float32, device=t.device)
     sc = tf.abs().amax(dim=-1) * inv127
     q = torch.round(tf / sc[..., None].clamp_min(1e-8))
     return q.clamp(-127, 127).to(torch.int8), sc
 
 
+@dataclass(frozen=True)
+class _RowWrite:
+    """Where a per-row write of T rows lands in a cache of S rows: `rows`
+    (B, T) and `drop` (B, T), made once a forward and shared by every
+    layer's buffers."""
+
+    rows: torch.Tensor
+    drop: torch.Tensor
+
+
+def _row_write(start: torch.Tensor, T: int, S: int) -> _RowWrite:
+    """Rows [start, start + T) of each batch row, those past S dropped as the
+    JAX scatter drops them. A dropped row is rewritten with its own value:
+    at row - T when the window starts inside the cache (below the window,
+    so never a row that a kept row writes), at row j of the window when it
+    starts past the end (an idle engine slot's length keeps growing)."""
+    steps = torch.arange(T, device=start.device)[None, :]
+    start = start.to(torch.int64)[:, None]
+    rows = start + steps
+    drop = rows >= S
+    return _RowWrite(torch.where(drop, torch.where(start < S, rows - T, steps), rows), drop)
+
+
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, start) -> torch.Tensor:
     """Write `new` (B, T, ...) into `buf` (B, S, ...) at rows [start, start + T),
-    in place. `start` is an int (every row at one offset: prefill, batched
-    generate) or a (B,) tensor of per-row offsets (a pool of slots with
-    different fill lengths decoding in one batched step)."""
+    in place, with the JAX package's bounds rules. `start` is an int (every
+    row at one offset: prefill, batched generate), where the window is
+    clamped into [0, S - T] as `dynamic_update_slice` clamps it, or per-row
+    offsets (a pool of slots with different fill lengths decoding in one
+    batched step): a (B,) tensor or its `_row_write`, whose rows past S are
+    dropped. On the card nothing waits for the host."""
     new = new.to(buf.dtype)
-    T = new.shape[1]
-    if isinstance(start, int) or start.ndim == 0:
-        s = int(start)
+    B, T = new.shape[:2]
+    S = buf.shape[1]
+    if isinstance(start, torch.Tensor) and start.ndim:
+        start = _row_write(start, T, S)
+    if not isinstance(start, _RowWrite):
+        s = min(max(int(start), 0), S - T)
         buf[:, s : s + T] = new
-    else:
-        B = new.shape[0]
-        rows = start.to(torch.int64)[:, None] + torch.arange(T, device=buf.device)[None, :]
-        buf[torch.arange(B, device=buf.device)[:, None], rows] = new
+        return buf
+    trail = [1] * (buf.ndim - 2)
+    idx = start.rows.view(B, T, *trail).expand(new.shape)
+    buf.scatter_(1, idx, torch.where(start.drop.view(B, T, *trail), buf.gather(1, idx), new))
     return buf
 
 
@@ -365,8 +396,9 @@ def _decoder_layer(layer: LlamaLayer, x, config: LlamaConfig, cos, sin, mask, ca
         _cache_write(cache_v, v8, start)
         _cache_write(cache_ks, ksc, start)
         _cache_write(cache_vs, vsc, start)
-        k_all = (cache_k.to(torch.float32) * cache_ks[..., None]).to(x.dtype)
-        v_all = (cache_v.to(torch.float32) * cache_vs[..., None]).to(x.dtype)
+        # int8 * f32 promotes to f32 in one kernel: the same values as a cast then a product
+        k_all = (cache_k * cache_ks[..., None]).to(x.dtype)
+        v_all = (cache_v * cache_vs[..., None]).to(x.dtype)
     elif cache_k is not None:
         # write the new K/V at [start, start + T); attend over the whole buffer
         _cache_write(cache_k, k, start)
@@ -442,12 +474,15 @@ def llama_apply(
             mask = mask & attention_mask.to(dev).bool()[:, None, None, :T]
 
     quant = cache is not None and cache.quantized
+    write_at = start  # per-row offsets: one write plan for every layer's buffers
+    if cache is not None and isinstance(start, torch.Tensor) and start.ndim:
+        write_at = _row_write(start, T, cache.max_length)
     for li, layer in enumerate(model.layers):
         x = _decoder_layer(
             layer, x, config, cos, sin, mask,
             cache.k[li] if cache is not None else None,
             cache.v[li] if cache is not None else None,
-            start, use_flash,
+            write_at, use_flash,
             cache.k_scale[li] if quant else None,
             cache.v_scale[li] if quant else None,
         )

@@ -6,13 +6,14 @@ package leaves these to XLA fusion, and the port leaves them to PyTorch's
 own operators; long no-cache attention goes to `ops/flash_attention.py`.
 The linear-layer dispatch (`dense` on the weight's leaf type) becomes a
 module swap: a quantized model holds `WOQLinear` where the float one holds
-`nn.Linear` (`quantization.quantize_model`). LoRA, W8A8 and the H2O
-attention-mass tap are not ported yet.
+`nn.Linear` (`quantization.quantize_model`). LoRA and W8A8 are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -54,7 +55,8 @@ def rope_inv_freq(head_dim: int, theta: float, scaling=None, device=None) -> tor
     blends by the smoothing ramp.
     """
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    inv_freq = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exponent)
+    # a fill, not an upload: a decode step on the card copies nothing from the host
+    inv_freq = 1.0 / (torch.full((), theta, dtype=torch.float32, device=device) ** exponent)
     if scaling is None:
         return inv_freq
     kind = scaling[0]
@@ -88,6 +90,21 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+# The H2O attention-mass tap: while a caller (the serving engine's h2o
+# policy) holds a list here, every `attention` call appends its per-key
+# attention mass, (B, Tq, Tk) f32 summed over heads, without a change to any
+# model's apply signature. Thread-local, so a server's threads never mix.
+_tap_tls = threading.local()
+
+
+def set_mass_tap(tap: Optional[list]) -> None:
+    _tap_tls.mass_tap = tap
+
+
+def get_mass_tap() -> Optional[list]:
+    return getattr(_tap_tls, "mass_tap", None)
+
+
 def attention(
     q: torch.Tensor,  # (B, Tq, H, D)
     k: torch.Tensor,  # (B, Tk, Hkv, D)
@@ -98,7 +115,8 @@ def attention(
 ) -> torch.Tensor:
     """Multi-head attention with f32 logits and softmax and GQA (KV heads
     repeated when Hkv != H); masked logits take the f32 minimum (not −inf),
-    so a fully masked row stays finite."""
+    so a fully masked row stays finite. With a mass tap set, the f32
+    probabilities summed over heads are appended to it."""
     H, D = q.shape[2:]
     Hkv = k.shape[2]
     if Hkv != H:
@@ -110,7 +128,11 @@ def attention(
         logits = logits + bias.to(torch.float32)
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    tap = get_mass_tap()
+    if tap is not None:
+        tap.append(probs.sum(dim=1))  # (B, Tq, Tk): per batch row, so per engine slot
+    probs = probs.to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
 
 

@@ -72,7 +72,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profiled(fn) -> dict:
+def profiled(fn) -> dict:
     """Run fn under the profiler → wall time, device busy time and kernel
     launches, with device time by kernel (K1-K4 by name, the rest together)
     and the top kernels."""
@@ -109,7 +109,7 @@ def profile_decode(model, config, ids, layout: str) -> None:
     t0 = time.perf_counter()
     next(generate_stream(model, config, ids, sampling))  # ends in the first token's copy to the host
     ttft_ms = (time.perf_counter() - t0) * 1e3
-    rec = _profiled(lambda: next(generate_stream(model, config, ids, sampling)))
+    rec = profiled(lambda: next(generate_stream(model, config, ids, sampling)))
     print(f"prefill {layout} " + json.dumps({"prompt_tokens": int(np.asarray(ids).size), "ttft_ms_unprofiled": ttft_ms,
                                              **{k: rec[k] for k in ("wall_ms", "device_busy_ms", "device_busy_share",
                                                                     "device_ms_by_kernel", "top")}}))
@@ -121,7 +121,7 @@ def profile_decode(model, config, ids, layout: str) -> None:
     for _ in range(DECODE_STEPS):
         next(it)  # each step ends in the token's copy to the host
     ms_unprofiled = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
-    rec = _profiled(lambda: [next(it) for _ in range(DECODE_STEPS)])
+    rec = profiled(lambda: [next(it) for _ in range(DECODE_STEPS)])
     print(f"decode {layout} " + json.dumps({
         "ms_per_token_unprofiled": ms_unprofiled,
         "ms_per_token_profiled": rec["wall_ms"] / DECODE_STEPS,
@@ -140,8 +140,8 @@ def profile_scoring(model, config, ids) -> None:
     evaluate_perplexity(model, config, ids, window=WINDOW, stride=WINDOW, batch_size=1)
     torch.cuda.synchronize()
     ms_unprofiled = (time.perf_counter() - t0) * 1e3
-    rec = _profiled(lambda: evaluate_perplexity(model, config, ids, window=WINDOW, stride=WINDOW,
-                                                batch_size=1))
+    rec = profiled(lambda: evaluate_perplexity(model, config, ids, window=WINDOW, stride=WINDOW,
+                                               batch_size=1))
     print("scoring window " + json.dumps({"tokens": len(ids), "ms_unprofiled": ms_unprofiled, **rec}))
 
 

@@ -21,6 +21,7 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.models",
     "intel_extension_for_transformers_tpu_torch.models.auto",
     "intel_extension_for_transformers_tpu_torch.models.bert",
+    "intel_extension_for_transformers_tpu_torch.models.engine",
     "intel_extension_for_transformers_tpu_torch.models.generation",
     "intel_extension_for_transformers_tpu_torch.models.hf_convert",
     "intel_extension_for_transformers_tpu_torch.models.llama",
@@ -33,6 +34,10 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.neural_chat.config",
     "intel_extension_for_transformers_tpu_torch.neural_chat.plugins",
     "intel_extension_for_transformers_tpu_torch.neural_chat.prompts",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.server",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.server.neuralchat_client",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.server.neuralchat_server",
+    "intel_extension_for_transformers_tpu_torch.neural_chat.server.openai_protocol",
     "intel_extension_for_transformers_tpu_torch.ops",
     "intel_extension_for_transformers_tpu_torch.ops.codebooks",
     "intel_extension_for_transformers_tpu_torch.ops.flash_attention",
@@ -110,6 +115,9 @@ def _entry_points(tmp=None):
 
     from intel_extension_for_transformers_tpu_torch import bridge
     from intel_extension_for_transformers_tpu_torch.models import auto, hf_convert
+    from intel_extension_for_transformers_tpu_torch.models.engine import DecodeEngine
+    from intel_extension_for_transformers_tpu_torch.models.tokenization import ByteTokenizer
+    from intel_extension_for_transformers_tpu_torch.neural_chat.server import NeuralChatServerExecutor
     from intel_extension_for_transformers_tpu_torch.quantization import save_load
     from intel_extension_for_transformers_tpu_torch.models.bert import BertConfig
     from intel_extension_for_transformers_tpu_torch.models.llama import LlamaConfig
@@ -130,6 +138,10 @@ def _entry_points(tmp=None):
         return str(tmp)
 
     hf_model = types.SimpleNamespace(config=types.SimpleNamespace(model_type="llama"))
+    tiny = LlamaConfig.tiny()
+    chat_model = torch.nn.Linear(1, 1)  # what the engine and the executor hold: never reached
+    server_config = {"port": 0, "loading_config": {"preloaded": (chat_model, tiny, ByteTokenizer())},
+                     "serving_config": {"continuous_batching": True}}
     return {
         "AutoModelForCausalLM.from_hf_model": lambda: auto.AutoModelForCausalLM.from_hf_model(hf_model),
         "AutoModelForCausalLM.from_pretrained(dir)": lambda: auto.AutoModelForCausalLM.from_pretrained(low_bit_dir()),
@@ -148,6 +160,8 @@ def _entry_points(tmp=None):
         "bridge.params_from_numpy": lambda: bridge.params_from_numpy({}, BertConfig.tiny()),
         "bridge.llama_from_numpy": lambda: bridge.llama_from_numpy({}, LlamaConfig.tiny()),
         "clustered_embeddings_device": lambda: clustered_embeddings_device(16, 8, 2),
+        "DecodeEngine": lambda: DecodeEngine(chat_model, tiny),
+        "NeuralChatServerExecutor.init": lambda: NeuralChatServerExecutor().init(server_config),
     }
 
 
