@@ -31,7 +31,8 @@ kernel against its plain PyTorch version on the card:
      and K7's inputs (scales one group late, int4 or hi-plane nibbles
      swapped) must fail their bars;
   3. the RAG path: INT4 BGE-base encoder → int4 flat index → INT4
-     cross-encoder rerank → QA prompt, over docs/ and the repository's *.md;
+     cross-encoder rerank → QA prompt, over docs/ (alone: the top-level
+     *.md files change with the repository, and the prompts with them);
   4. the flat-search workload of bench.py: 100k x 768 clustered embeddings in
      an int4 + bf16-shadow index; recall@10 at B = 256, QPS at B = 4096, and
      the two-tier int4 path at B = 16;
@@ -63,6 +64,22 @@ kernel against its plain PyTorch version on the card:
      inserted one pool row off must fail that bar; tokens/s, TTFT p50/p99,
      pool steps, chunks, peak memory, and a few pool steps profiled (ms,
      launches and the device's busy share a step);
+ 5g. the other generation modes, on the khalf model before its w32 repack
+     and phase 5's first greedy query: (a) beam search (4 beams) through
+     predict_stream and generate_beam, its score held against one no-cache
+     forward (BEAM_SCORE_TOL), and a skipped cache reorder that reaches the
+     returned beam must fail that bar; (b) speculative decoding through the
+     chat API with a TinyLlama-1.1B-shaped int4 draft (spec_k 4): greedy
+     tokens held by teacher forcing, the target as its own draft (it must
+     keep a draft token), a sampled run, and a target cache rewound one row
+     short must fail the bar; (c) the attention-sink and H2O policies at
+     budget T + 32 (teacher forcing) and T + 8 (sink: tokens against the
+     plain K1 twin's run with them forced, victims equal; H2O: its
+     invariants, and its tokens against the plain twin's run with its
+     tokens and victims forced); a beam step, a speculative round and a
+     policy step profiled; (d) the server over 5s (a)'s config with the
+     draft in its engine, 8 RAG requests held by teacher forcing; K1's
+     launches counted by M (`woq_int4_cuda.launches_by_m`);
   6. scoring: evaluate_perplexity over 4 windows of 2048 byte tokens on the
      w32 model (K4 in every layer, K3 in every product), and one window held
      against the plain-attention forward, and again with a fault planted in
@@ -90,6 +107,7 @@ the tensor cores: the khalf prefill and the B = 16 search run K1's tiles,
 the w32 prefill and scoring K3's, the int8 prefill K2's, the flat search at
 B >= 64 K5's). The counts are zeroed just before
 each main-path phase (3-4, 3b, 5's generations, 5s's runs (a), (b) and (c),
+5g's runs,
 6, 7, 8's reload and generations) and read just after it, and
 every kernel must have launched on the main path. The line before the last
 is a JSON object of the kernels' numbers; the last line is {"ok": true,
@@ -162,6 +180,12 @@ SCORE_WINDOWS = 4
 # flip, by a gap that rounding bounds; a slot cache inserted into the wrong
 # pool row (the planted fault) must exceed it.
 SERVE_DELTA = 0.1
+# Phase 5g's beam bar: the beam's score (its summed log-probabilities over
+# len ** length_penalty, length_penalty 1: the mean log-probability a token)
+# recomputed by one no-cache forward over prompt + ids. The two differ by the
+# bf16 rounding of other routes (K1 at M = 4 with a cache, at M = the
+# sequence without), as the serving bar's logits do.
+BEAM_SCORE_TOL = 0.05
 LOGIT_COS_BAR = 0.995
 LOGIT_REL_BAR = 0.12
 PRODUCT_BAR = 1e-2
@@ -428,6 +452,73 @@ def ivf_kernel_cases(torch, dev, C: int, cases, distinct: bool = False, faults: 
     return out
 
 
+def np_encode_residual(v, cent, group_size: int, bits):
+    """The IVF residual codec in numpy, dividing truly in f32 as the JAX
+    package's eager encoder does → (codes int8 (M, D/2) packed pairs |
+    (M, D), scales as bf16 bits (M, G) uint16, rounded to nearest even);
+    bits "split" → (hi plane, lo plane, scales). The port's tests use this
+    copy too."""
+    import numpy as np
+
+    M, D = v.shape
+    qmax = 7 if bits == 4 else 127
+    r = (np.asarray(v, np.float32) - np.asarray(cent, np.float32)).reshape(M, D // group_size, group_size)
+    scale = np.abs(r).max(axis=-1) / np.float32(qmax)
+    q = np.clip(np.round(r / np.maximum(scale[..., None], np.float32(1e-12))), -qmax - 1, qmax)
+    q = q.astype(np.int32).reshape(M, D)
+    b = scale.view(np.uint32).astype(np.uint64)
+    sbits = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint16)
+
+    def pack(n):
+        return ((n[:, 0::2] & 0xF) | ((n[:, 1::2] & 0xF) << 4)).astype(np.uint8).view(np.int8)
+
+    if bits == "split":
+        return pack(q >> 4), pack(q & 0xF), sbits
+    return (pack(q) if bits == 4 else q.astype(np.int8)), sbits
+
+
+def ivf_encoder_check(torch, np, idx, docs, kind: str, sample: int = 65_536) -> None:
+    """A sample of the rows `idx` stored, re-encoded in numpy by true f32
+    division: the card's codes and bf16 scales must match bit for bit (int8,
+    or the split hi/lo planes of a refine index; for int4 the card's
+    encoder on the same rows)."""
+    from intel_extension_for_transformers_tpu_torch.retrieval import ivf as ivf_module
+
+    L = idx._list_cap
+    stored = torch.nonzero(idx._row_ids.reshape(-1) >= 0)[:, 0]
+    pick = stored[torch.randperm(stored.numel(), generator=torch.Generator(device=stored.device).manual_seed(5),
+                                 device=stored.device)[:sample]]
+    rows = idx._row_ids.reshape(-1)[pick].to(torch.int64)
+    v = docs[rows].to(torch.float32)
+    if idx.metric == "cosine":
+        v = ivf_module._l2_normalize(v)
+    cent = idx.centroids[pick // L].to(torch.float32)
+    v_np, cent_np = v.cpu().numpy(), cent.cpu().numpy()
+    g = idx.group_size
+    planes = {}
+    if idx.refine:
+        lo = idx._lo[rows] if idx._lo_dense else idx._lo.reshape(-1, idx._lo.shape[-1])[pick]
+        hi_w, lo_w, s_w = np_encode_residual(v_np, cent_np, g, "split")
+        planes["split hi codes_differing"] = (idx._storage.reshape(-1, idx._storage.shape[-1])[pick], hi_w)
+        planes["split lo codes_differing"] = (lo, lo_w)
+        planes["split scales_differing"] = (idx._scales.reshape(-1, idx._scales.shape[-1])[pick], s_w)
+    else:
+        c_w, s_w = np_encode_residual(v_np, cent_np, g, idx._bits)
+        planes[f"{kind} codes_differing"] = (idx._storage.reshape(-1, idx._storage.shape[-1])[pick], c_w)
+        planes[f"{kind} scales_differing"] = (idx._scales.reshape(-1, idx._scales.shape[-1])[pick], s_w)
+        c4, s4 = ivf_module._encode_residual(v, cent, g, 4)
+        c4_w, s4_w = np_encode_residual(v_np, cent_np, g, 4)
+        planes["int4 codes_differing"] = (c4, c4_w)
+        planes["int4 scales_differing"] = (s4, s4_w)
+    out = {"index": kind, "rows": int(pick.numel())}
+    for name, (got, want) in planes.items():
+        got = got.view(torch.int16).cpu().numpy().view(np.uint16) if got.dtype == torch.bfloat16 else got.cpu().numpy()
+        out[name] = int((got != want).any(axis=1).sum())  # rows with any difference
+    print("ivf encoder vs numpy true division " + json.dumps(out))
+    check(all(n == 0 for k, n in out.items() if k.endswith("differing")),
+          f"{kind}: every sampled row's codes and scales equal the numpy encoder's")
+
+
 def ivf_phase(torch, dev, n: int) -> None:
     """Phase 7 (see the module docstring) over n rows."""
     import numpy as np
@@ -449,6 +540,7 @@ def ivf_phase(torch, dev, n: int) -> None:
     for kind, (_, modes) in profile_ivf.KINDS.items():
         idx, rec = profile_ivf.build(kind, docs)
         print("ivf build " + json.dumps(rec))
+        ivf_encoder_check(torch, np, idx, docs, kind)
         for mode, kw in modes.items():
             scores, ids = idx.search(queries, **kw)
             check(ids.shape == (B, kw["k"]) and bool(np.isfinite(scores).all()) and bool((ids >= 0).all()),
@@ -759,6 +851,518 @@ def serving_phase(torch, np, dev, card, bot, lcfg, tok, prompts, zero_counts, ad
     check(max(gaps_f) > SERVE_DELTA, "the teacher-forcing bar rejects the planted fault")
     del eng_f
     torch.cuda.empty_cache()
+
+
+def draft_config():
+    """The draft model of phase 5g: TinyLlama-1.1B's published shapes
+    (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T, config.json: the
+    usual draft for Llama-2-7B, whose tokenizer it shares)."""
+    from intel_extension_for_transformers_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=2048, num_hidden_layers=22, num_attention_heads=32,
+                       num_key_value_heads=4, intermediate_size=5632, max_position_embeddings=2048,
+                       rope_theta=10000.0, rms_norm_eps=1e-5)
+
+
+def beam_prefixes(parents, fed, step):
+    """Each alive row's prefix after beam step `step` (prefix_{i+1}[r] =
+    prefix_i[parents_i[r]] + fed_i[r]), from each step's parents and fed
+    tokens."""
+    prefixes = [()] * len(parents[0])
+    for i in range(step + 1):
+        prefixes = [prefixes[p] + (t,) for p, t in zip(parents[i], fed[i])]
+    return prefixes
+
+
+def beam_skip_reach(parents, fed, ids, step) -> int:
+    """How many cached tokens a skipped reorder at `step` gets wrong for the
+    beam that returned `ids`: the positions where its row's own earlier
+    prefix differs from its parent's (0 when the row is its own parent)."""
+    if len(ids) <= step + 1:
+        return 0
+    want = tuple(int(t) for t in ids[: step + 1])
+    rows = beam_prefixes(parents, fed, step)
+    r = next((r for r, p in enumerate(rows) if p == want), None)
+    if r is None or parents[step][r] == r:
+        return 0
+    before = beam_prefixes(parents, fed, step - 1) if step else [()] * len(rows)
+    return sum(a != b for a, b in zip(before[r], before[parents[step][r]]))
+
+
+def generation_modes_phase(torch, np, dev, card, bot, lcfg, tok, query, probe, prompts, agent, zero_counts,
+                           add_counts, dcfg=None) -> dict:
+    """Phase 5g: the chat API's other generation modes on the khalf
+    Llama-2-7B and phase 5's first greedy query (`probe`, its QA prompt's
+    ids): (a) beam search, (b) speculative decoding with a TinyLlama-1.1B-
+    shaped draft, (c) the attention-sink and H2O KV policies, (d) the
+    server's engine with the draft. Bars hold tokens by teacher forcing or
+    compare integers; planted faults must fail them. → each run's numbers,
+    K1's launches by M among them."""
+    import threading
+    from dataclasses import replace
+    from http.client import HTTPConnection
+
+    from intel_extension_for_transformers_tpu_torch.models import engine as engine_module
+    from intel_extension_for_transformers_tpu_torch.models import generation, kv_policies, speculative
+    from intel_extension_for_transformers_tpu_torch.models.llama import init_kv_cache, llama_apply, llama_init_params
+    from intel_extension_for_transformers_tpu_torch.neural_chat import (
+        GenerationConfig,
+        LoadingModelConfig,
+        PipelineConfig,
+        build_chatbot,
+    )
+    from intel_extension_for_transformers_tpu_torch.neural_chat.server import NeuralChatServerExecutor
+    from intel_extension_for_transformers_tpu_torch.ops import quant_matmul
+    from intel_extension_for_transformers_tpu_torch.quantization import RtnConfig, quantize_model
+    from intel_extension_for_transformers_tpu_torch.utils.profile_llama import events_ms, profiled
+
+    t_phase = time.perf_counter()
+    model, eos, T, n_new = bot.params, tok.eos_token_id, len(probe), NEW_TOKENS
+    probe = [int(t) for t in probe]
+    greedy = GenerationConfig(max_new_tokens=n_new, do_sample=False, repetition_penalty=1.0)
+    out = {}
+
+    def teacher(prompt_ids, tokens, forward=None):
+        """→ (largest (top - chosen) / max |logit| over the emitted tokens'
+        rows, share exact) against one no-cache forward over prompt + tokens,
+        or against `forward` (rows, one a token)."""
+        if forward is None:
+            seq = torch.tensor([list(prompt_ids) + list(tokens)], device=dev)
+            logits, _ = llama_apply(model, lcfg, seq)
+            forward = logits[0, len(prompt_ids) - 1: len(prompt_ids) - 1 + len(tokens)]
+        rows = forward.float()
+        chosen = rows.gather(1, torch.tensor(list(tokens), device=dev)[:, None])[:, 0]
+        top = rows.max(dim=1).values
+        gap = (top - chosen) / rows.abs().max(dim=1).values
+        return float(gap.max()), float((chosen == top).float().mean())
+
+    def beam_score(ids, lp=1.0):
+        """The penalized log-probability of `ids` after the probe, by one no-cache forward."""
+        seq = torch.tensor([probe + [int(t) for t in ids]], device=dev)
+        logits, _ = llama_apply(model, lcfg, seq)
+        logp = torch.log_softmax(logits[0, T - 1:-1].float(), dim=-1)
+        return float(logp.gather(1, seq[0, T:, None]).sum()) / len(ids) ** lp
+
+    # ---- (a) beam search: predict_stream, then generate_beam on the same ids ----
+    real_beam, beam_log = generation.generate_beam, []
+
+    def recording_beam(m, c, ids, **kw):
+        got = real_beam(m, c, ids, **kw)
+        beam_log.append((np.asarray(ids).reshape(-1).tolist(), got))
+        return got
+
+    generation.generate_beam = recording_beam
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        text = "".join(bot.predict_stream(query, GenerationConfig(num_beams=4, do_sample=False,
+                                                                  max_new_tokens=n_new)))
+    finally:
+        generation.generate_beam = real_beam
+    chat_s = time.perf_counter() - t0
+    ca = add_counts("phase 5g (a), the beam chat")
+    m_beam = ca["woq_int4_by_m"]
+    check(len(beam_log) == 1 and beam_log[0][0] == probe, "the beam chat ran generate_beam on the QA prompt")
+    chat_ids, _ = beam_log[0][1]
+    check(text == "".join(generation.detokenize_stream((np.array([t]) for t in chat_ids), tok)),
+          "the beam chat's text is its ids' text")
+    prefill_ms = events_ms(lambda: llama_apply(model, lcfg, torch.tensor([probe] * 4, device=dev),
+                                               init_kv_cache(lcfg, 4, T + n_new, device=dev)), 2, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, score = real_beam(model, lcfg, probe, num_beams=4, max_new_tokens=n_new, eos_token_id=eos)
+    beam_s = time.perf_counter() - t0
+    gap = abs(score - beam_score(ids))
+    row = {"card": card, "run": "beam, 4 beams", "prompt_tokens": T, "new_tokens": len(ids), "score": score,
+           "score_gap": gap, "bar": BEAM_SCORE_TOL, "same_ids_as_chat": list(ids) == list(chat_ids),
+           "chat_s": chat_s, "beam_s": beam_s, "prefill_4_rows_ms": prefill_ms,
+           "ms_per_beam_step": (beam_s * 1e3 - prefill_ms) / max(1, len(ids) - 1),
+           "k1_launches_by_m": m_beam, "k1_tiles_at_m4": m_beam.get(4, 0)}
+    print("gen beam " + json.dumps(row))
+    out["beam"] = row
+    check(ca["woq_int4"] > 0 and m_beam.get(4, 0) > 0, "beam search ran K1 at M = 4")
+    check(gap <= BEAM_SCORE_TOL, f"the beam's score within {BEAM_SCORE_TOL} of its no-cache recomputation")
+
+    # the planted fault: one step's parent reorder of the cache skipped.
+    # It reaches the returned beam when that beam's row at the step holds
+    # another row's cache; each step's parents and fed tokens show which
+    # row that was. The sound run's lineage names the steps to try (the
+    # faulty run repeats it up to the skip); each faulty run that the
+    # skip reaches must fail the bar
+    real_reorder, real_get_apply = generation._reorder_cache, generation.get_apply_fn
+
+    def beam_run(skip=None):
+        parents, fed = [], []
+
+        def reorder(cache, p):
+            parents.append(p.tolist())
+            return cache if len(parents) == (skip if skip is not None else -1) + 1 else real_reorder(cache, p)
+
+        def get_apply(config):
+            apply = real_get_apply(config)
+
+            def rec(m, c, x, cache=None, *a, **kw):
+                if x.shape == (4, 1):
+                    fed.append(x[:, 0].tolist())
+                return apply(m, c, x, cache, *a, **kw)
+            return rec
+
+        generation._reorder_cache, generation.get_apply_fn = reorder, get_apply
+        try:
+            got = real_beam(model, lcfg, probe, num_beams=4, max_new_tokens=n_new, eos_token_id=eos)
+        finally:
+            generation._reorder_cache, generation.get_apply_fn = real_reorder, real_get_apply
+        return got, parents, fed
+
+    sound, parents, fed = beam_run()
+    check(list(sound[0]) == list(ids), "the recorded beam run repeats generate_beam")
+    # (step, cached tokens a skip there gets wrong for the sound beam x the tokens after it)
+    reach = {st: beam_skip_reach(parents, fed, ids, st) * (len(ids) - st - 1) for st in range(len(parents))}
+    faults = []
+    for skip in sorted((st for st in reach if reach[st]), key=lambda st: -reach[st])[:4]:
+        got, f_parents, f_fed = beam_run(skip)
+        wrong = beam_skip_reach(f_parents, f_fed, got[0], skip)
+        faults.append({"skipped_step": skip, "wrong_cached_tokens": wrong, "reached": wrong > 0,
+                       "score_gap": abs(got[1] - beam_score(got[0])) if wrong else None})
+        if wrong:
+            break
+    print("gen beam planted fault, one reorder skipped (steps where the sound beam's row held another "
+          f"row's cache: {sum(1 for v in reach.values() if v)}): " + json.dumps(faults))
+    check(any(f["reached"] for f in faults), "a skipped reorder reached the returned beam")
+    check(all(f["score_gap"] > BEAM_SCORE_TOL for f in faults if f["reached"]),
+          "the beam's score bar rejects the planted fault")
+
+    # ---- (b) speculative decoding through the chat API ----
+    dcfg = dcfg or draft_config()
+    t0 = time.perf_counter()
+    draft = llama_init_params(torch.Generator(device=dev).manual_seed(12), dcfg, dtype=torch.bfloat16)
+    quantize_model(draft, RtnConfig(weight_dtype="int4", group_size=128))
+    torch.cuda.synchronize()
+    print(f"draft: TinyLlama-1.1B shapes, {dcfg.num_hidden_layers} x {dcfg.hidden_size} (random weights, "
+          f"seed 12), RTN int4 g128 in {time.perf_counter() - t0:.1f} s")
+    spec_bot = build_chatbot(PipelineConfig(
+        model_name_or_path="Llama-2-7b-chat (random weights)",
+        loading_config=LoadingModelConfig(preloaded=(model, lcfg, tok), assistant_model=(draft, dcfg), spec_k=4),
+        generation_config=greedy,
+        plugins={"retrieval": {"agent": agent}} if agent is not None else {},
+    ))
+    check(spec_bot is not None and spec_bot.assistant == (draft, dcfg), "the chatbot carries the draft")
+    real_spec, spec_log = speculative.generate_speculative_stream, []
+
+    def recording_spec(*args, **kw):
+        stats = {}
+        rec = {"ids": np.asarray(args[4]).reshape(-1).tolist(), "tokens": [], "stats": stats}
+        spec_log.append(rec)
+        torch.cuda.synchronize()
+        rec["t0"] = time.perf_counter()
+        for chunk in real_spec(*args, stats=stats, **kw):
+            rec["tokens"] += [int(t) for t in chunk]
+            yield chunk
+        rec["s"] = time.perf_counter() - rec["t0"]
+
+    def spec_run(name, cfg, assistant=None):
+        spec_bot.assistant = assistant or (draft, dcfg)
+        zero_counts()
+        n0 = len(spec_log)
+        speculative.generate_speculative_stream = recording_spec
+        try:
+            "".join(spec_bot.predict_stream(query, cfg))
+        finally:
+            speculative.generate_speculative_stream = real_spec
+        c = add_counts(f"phase 5g (b), {name}")
+        check(len(spec_log) == n0 + 1 and spec_log[-1]["ids"] == probe, f"{name}: one speculative stream")
+        rec, m = spec_log[-1], c["woq_int4_by_m"]
+        n = len(rec["tokens"])
+        row = {"card": card, "run": name, "new_tokens": n, **rec["stats"], "s": rec["s"],
+               "ms_per_token": rec["s"] * 1e3 / n, "k1_gemv": m.get(1, 0), "k1_tiles": c["woq_int4_tiles"],
+               "k1_launches_by_m": m}
+        return rec, row
+
+    rec, row = spec_run("speculative, TinyLlama-shaped draft, greedy", greedy)
+    row["teacher_gap_max"], row["teacher_exact_share"] = teacher(probe, rec["tokens"])
+    print("gen spec " + json.dumps(row))
+    out["spec"] = row
+    check(len(rec["tokens"]) == n_new or rec["tokens"][-1] == eos, "32 greedy tokens or an EOS")
+    check(row["teacher_gap_max"] <= SERVE_DELTA, f"every speculative token within {SERVE_DELTA} of its row's "
+                                                 "top logit by teacher forcing")
+    check(row["k1_launches_by_m"].get(1, 0) > 0 and row["k1_launches_by_m"].get(5, 0) > 0,
+          "K1 ran at M = 1 (draft steps) and M = 5 (verify forwards)")
+
+    rec, row = spec_run("speculative, the target as its own draft, greedy", greedy, (model, lcfg))
+    row["teacher_gap_max"], row["teacher_exact_share"] = teacher(probe, rec["tokens"])
+    print("gen spec " + json.dumps(row))
+    out["spec_self"] = row
+    check(row["accepted"] >= 1, "the self-draft kept at least one draft token")
+
+    sampled = GenerationConfig(max_new_tokens=n_new, do_sample=True, temperature=0.8, repetition_penalty=1.0)
+    rec, row = spec_run("speculative, TinyLlama-shaped draft, sampled (T 0.8)", sampled)
+    print("gen spec " + json.dumps(row))
+    out["spec_sampled"] = row
+    check((len(rec["tokens"]) == n_new or rec["tokens"][-1] == eos)
+          and all(0 <= t < lcfg.vocab_size for t in rec["tokens"]), "32 sampled tokens in the vocabulary")
+
+    # the planted fault: the target's cache rewound one row short every round
+    real_rewind = speculative._rewind
+    speculative._rewind = lambda t, d, length: (replace(t, length=length - 1), replace(d, length=length))
+    try:
+        f_tokens = speculative.generate_speculative(model, lcfg, draft, dcfg, probe,
+                                                    greedy.to_sampling_config(eos), spec_k=4)[0].tolist()
+    finally:
+        speculative._rewind = real_rewind
+    f_gap, _ = teacher(probe, f_tokens)
+    print(f"gen spec planted fault, the target's cache rewound one row short: teacher-forcing gap "
+          f"{f_gap:.4f} (bar {SERVE_DELTA})")
+    check(f_gap > SERVE_DELTA, "the teacher-forcing bar rejects the planted rewind fault")
+
+    # ---- (c) the KV policies, 32 greedy tokens each ----
+    real_forward, pol_log = kv_policies._policy_forward, []
+
+    def recording_forward(policy, m, c, cache, token):
+        logits, new = real_forward(policy, m, c, cache, token)
+        pol_log.append({"victim": torch.argmax((new.positions == cache.next_pos).to(torch.int64), dim=1),
+                        "cache": new})
+        return logits, new
+
+    def policy_run(name, policy):
+        bot.kv_policy = policy
+        pol_log.clear()
+        zero_counts()
+        kv_policies._policy_forward = recording_forward
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            text_tokens = []
+            real_stream = generation.generate_stream
+
+            def rec_stream(*args, **kw):
+                for t in real_stream(*args, **kw):
+                    text_tokens.append(int(t[0]))
+                    yield t
+
+            generation.generate_stream = rec_stream
+            try:
+                "".join(bot.predict_stream(query, greedy))
+            finally:
+                generation.generate_stream = real_stream
+        finally:
+            kv_policies._policy_forward = real_forward
+            bot.kv_policy = None
+        s = time.perf_counter() - t0
+        c = add_counts(f"phase 5g (c), {name}")
+        m = c["woq_int4_by_m"]
+        victims = [int(e["victim"][0]) for e in pol_log]
+        row = {"card": card, "run": name, "budget": policy.budget, "new_tokens": len(text_tokens), "s": s,
+               "ms_per_token": s * 1e3 / len(text_tokens), "k1_gemv": m.get(1, 0), "k1_launches_by_m": m,
+               "k1": c["woq_int4"]}
+        return text_tokens, victims, pol_log[-1]["cache"] if pol_log else None, row
+
+    for name, policy in (("sink 4, budget T + 32", kv_policies.AttentionSinkKVPolicy(budget=T + n_new, sink_size=4)),
+                         ("h2o recent 16, budget T + 32", kv_policies.H2OKVPolicy(budget=T + n_new, recent_size=16))):
+        tokens, _, _, row = policy_run(name, policy)
+        row["teacher_gap_max"], row["teacher_exact_share"] = teacher(probe, tokens)
+        print("gen policy " + json.dumps(row))
+        out[name] = row
+        check(row["teacher_gap_max"] <= SERVE_DELTA, f"{name}: every token within {SERVE_DELTA} by teacher forcing")
+        check(row["k1_launches_by_m"].get(1, 0) >= 7 * lcfg.num_hidden_layers * (len(tokens) - 1),
+              f"{name}: K1's GEMV ran every product of every decode step")
+
+    def plain_forced(policy, tokens, forced=None):
+        """The policy run with the plain K1 twin on the card, `tokens`
+        forced, and with `forced` the victims too → (each token's logits
+        row, the victim the policy picks a step, the last cache)."""
+        real_mm, real_victims = quant_matmul.woq_matmul, kv_policies.victims
+        quant_matmul.woq_matmul = lambda x, qt, out_dtype=None: quant_matmul.woq_matmul_plain(
+            x.reshape(-1, x.shape[-1]).to(torch.bfloat16), qt, out_dtype or x.dtype).reshape(*x.shape[:-1], qt.N)
+        try:
+            cache = policy.init_cache(lcfg, 1, T + n_new, device=dev)
+            logits, cache = policy.prefill(model, lcfg, torch.tensor([probe], device=dev), cache)
+            rows, victims = [logits[0, -1]], []
+            for i, t in enumerate(tokens[:-1]):
+                victims.append(int(real_victims(policy, cache)[0]))
+                if forced is not None:
+                    pinned = torch.tensor([forced[i]], device=dev)
+                    kv_policies.victims = lambda p, c: pinned
+                logits, cache = kv_policies._policy_forward(policy, model, lcfg, cache,
+                                                            torch.tensor([t], device=dev))
+                kv_policies.victims = real_victims
+                rows.append(logits[0, -1])
+        finally:
+            quant_matmul.woq_matmul, kv_policies.victims = real_mm, real_victims
+        return torch.stack(rows), victims, cache
+
+    sink = kv_policies.AttentionSinkKVPolicy(budget=T + 8, sink_size=4)
+    tokens, victims, _, row = policy_run("sink 4, budget T + 8", sink)
+    rows, p_victims, _ = plain_forced(sink, tokens)
+    row["teacher_gap_max"], row["teacher_exact_share"] = teacher(probe, tokens, forward=rows)
+    row["evictions"] = len(victims) - 8  # the first 8 decode steps fill the empty slots
+    row["victims_equal"] = victims == p_victims
+    print("gen policy " + json.dumps(row))
+    out["sink evicting"] = row
+    check(row["teacher_gap_max"] <= SERVE_DELTA, f"sink at T + 8: every token within {SERVE_DELTA} of the "
+                                                 "plain twin's top logit, the kernel run's tokens forced")
+    check(victims == p_victims, "sink at T + 8: the kernel run's victims equal the plain twin's")
+
+    h2o = kv_policies.H2OKVPolicy(budget=T + 8, recent_size=16)
+    tokens, victims, cache, row = policy_run("h2o recent 16, budget T + 8", h2o)
+    # the plain twin with the kernel run's tokens and victims forced: near
+    # ties of the attention mass cannot flip a victim there, so its rows hold
+    # every token; the victim it would pick from the same history is printed
+    rows, p_victims, p_cache = plain_forced(h2o, tokens, forced=victims)
+    row["teacher_gap_max"], row["teacher_exact_share"] = teacher(probe, tokens, forward=rows)
+    pos = cache.positions[0].tolist()
+    last = cache.next_pos - 1
+    row["evictions"] = len(victims) - 8
+    row["victims_equal_plain_share"] = float(np.mean([a == b for a, b in zip(victims, p_victims)]))
+    row["accum_rel_err"] = float((cache.accum - p_cache.accum).abs().max() / p_cache.accum.abs().max())
+    print("gen policy " + json.dumps(row))
+    out["h2o evicting"] = row
+    check(row["teacher_gap_max"] <= SERVE_DELTA, f"h2o at T + 8: every token within {SERVE_DELTA} of the plain "
+                                                 "twin's top logit, the kernel run's tokens and victims forced")
+    check(pos == p_cache.positions[0].tolist(), "h2o at T + 8: the forced plain run holds the same positions")
+    check(set(range(last - 15, last + 1)) <= set(pos), "h2o: the 16 most recent positions are kept")
+    check(min(pos) >= 0 and len(pos) == T + 8 and len(set(pos)) == len(pos), "h2o: the budget full, positions unique")
+
+    # ---- where the time goes: one beam step, one speculative round, one policy step, profiled ----
+    def beam_step_setup():
+        cache = init_kv_cache(lcfg, 4, T + n_new, device=dev)
+        _, cache = llama_apply(model, lcfg, torch.tensor([probe] * 4, device=dev), cache)
+        return cache
+
+    bcache = beam_step_setup()
+    par = torch.tensor([0, 0, 1, 2], device=dev)
+    toks = torch.tensor([[11], [12], [13], [14]], device=dev)
+
+    def beam_step():
+        c = generation._reorder_cache(replace(bcache, length=T), par)
+        logits, _ = llama_apply(model, lcfg, toks, c)
+        generation._top_k_stable(torch.log_softmax(logits[:, -1].float(), -1).reshape(-1), 8)
+
+    tc = init_kv_cache(lcfg, 1, T + n_new + 8, device=dev)
+    _, tc = llama_apply(model, lcfg, torch.tensor([probe], device=dev), tc)
+    dc = init_kv_cache(dcfg, 1, T + n_new + 8, device=dev)
+    _, dc = llama_apply(draft, dcfg, torch.tensor([probe], device=dev), dc)
+    gen_dev = torch.Generator(device=dev).manual_seed(0)
+
+    def spec_round():
+        cur = torch.tensor([probe[-1]], device=dev)
+        d, q, _ = speculative._draft_propose(draft, dcfg, replace(dc, length=T), cur, gen_dev, 4, 0.0, True)
+        n, nxt, _ = speculative._verify(model, lcfg, replace(tc, length=T), cur, d, q, gen_dev, 4, 0.0, True)
+        int(n)
+
+    pcache = sink.init_cache(lcfg, 1, T + 8, device=dev)
+    _, pcache = sink.prefill(model, lcfg, torch.tensor([probe], device=dev), pcache)
+
+    def policy_step():
+        kv_policies._policy_forward(sink, model, lcfg, pcache, torch.tensor([probe[-1]], device=dev))
+
+    for name, fn in (("beam step (4 beams)", beam_step), ("speculative round (k 4)", spec_round),
+                     ("sink policy step", policy_step)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        rec = profiled(lambda: [fn() for _ in range(3)])
+        prof = {"card": card, "run": name, "ms": ms, "ms_profiled": rec["wall_ms"] / 3,
+                "device_busy_ms": rec["device_busy_ms"] / 3, "device_busy_share": rec["device_busy_share"],
+                "launches": rec["kernel_launches"] / 3,
+                "device_ms_by_kernel": {k: v / 3 for k, v in rec["device_ms_by_kernel"].items()},
+                "top": [(name, ms / 3, n / 3) for name, ms, n in rec["top"][:6]]}
+        print("gen profile " + json.dumps(prof))
+        out[f"profile {name}"] = prof
+    del bcache, tc, dc, pcache
+    torch.cuda.empty_cache()
+
+    # ---- (d) the server's engine with the draft: 8 RAG requests, greedy ----
+    zero_counts()
+    a_cfg = dict(max_slots=8, max_len=1024, prefill_chunk=128)
+    executor = NeuralChatServerExecutor()
+    check(executor.init({
+        "host": "127.0.0.1", "port": 0, "model_name_or_path": "Llama-2-7b-chat (random weights)",
+        "loading_config": {"preloaded": (model, lcfg, tok), "assistant_model": (draft, dcfg), "spec_k": 4},
+        "generation_config": {"max_new_tokens": n_new, "do_sample": False, "repetition_penalty": 1.0},
+        "serving_config": {"continuous_batching": True, **a_cfg},
+    }), "the server executor started with the draft")
+    check(executor.engine.draft_model is draft and executor.engine.stats()["speculative"],
+          "the server's engine speculates with the chatbot's draft")
+    served, spec_steps = {}, {"slot_steps": 0, "kept": 0}
+    real_submit, real_step = executor.app._engine_submit, engine_module._spec_engine_step
+
+    def recording_submit(q, *args, **kw):
+        req = real_submit(q, *args, **kw)
+        rec, gen = {"ids": [int(t) for t in np.asarray(req.prompt_ids).reshape(-1)], "tokens": []}, req.tokens
+        served[q] = rec
+
+        def tokens():
+            for t in gen():
+                rec["tokens"].append(t)
+                yield t
+
+        req.tokens = tokens
+        return req
+
+    def counting_step(*args, **kw):
+        res = real_step(*args, **kw)
+        active = torch.tensor([s is not None for s in executor.engine._slots], device=dev)
+        spec_steps["slot_steps"] += int(active.sum())
+        spec_steps["kept"] += int(((res[1] - 1) * active).sum())
+        return res
+
+    executor.app._engine_submit = recording_submit
+    engine_module._spec_engine_step = counting_step
+    executor.run(block=False)
+    errors, texts = [], {}
+
+    def chat(i):
+        try:
+            conn = HTTPConnection("127.0.0.1", executor.port, timeout=600)
+            conn.request("POST", "/v1/chat/completions",
+                         json.dumps({"messages": [{"role": "user", "content": prompts[i]}]}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            conn.close()
+            check(resp.status == 200, f"chat completion: {resp.status}")
+            texts[i] = json.loads(data)["choices"][0]["message"]["content"]
+        except Exception as e:  # noqa: BLE001 — reported by the check below
+            errors.append(repr(e))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=chat, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not errors, f"the HTTP requests: {errors}")
+        check(executor.engine.fatal_error is None, "the server's engine thread is alive")
+        stats = executor.engine.stats()
+    finally:
+        executor.stop()
+        engine_module._spec_engine_step = real_step
+    cd = add_counts("phase 5g (d), serving with the draft")
+    m = cd["woq_int4_by_m"]
+    # a request that ended before n_new tokens ended on EOS: the row after its last token must pick it
+    gaps = [teacher(r["ids"], r["tokens"] + ([eos] if len(r["tokens"]) < n_new else []))[0]
+            for r in served.values()]
+    n_tok = sum(len(r["tokens"]) for r in served.values())
+    row = {"card": card, "run": "serving with the draft, 8 slots, k 4", "requests": len(served), "tokens": n_tok,
+           "wall_s": wall, "tokens_per_s": n_tok / wall, "pool_steps": stats["decode_steps"],
+           "slot_steps": spec_steps["slot_steps"],
+           "acceptance_rate": spec_steps["kept"] / max(1, 4 * spec_steps["slot_steps"]),
+           "teacher_gap_max": max(gaps), "k1_tiles": cd["woq_int4_tiles"], "k1_launches_by_m": m}
+    print("gen serving " + json.dumps(row))
+    out["serving"] = row
+    check(len(served) == 8 and all(r["tokens"] for r in served.values()), "every served request got tokens")
+    check(row["teacher_gap_max"] <= SERVE_DELTA, f"every served token within {SERVE_DELTA} by teacher forcing")
+    check(spec_steps["slot_steps"] > 0, "the server's engine ran speculative pool steps")
+    del draft, spec_bot, executor
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 5g in {out['seconds']:.1f} s")
+    return out
 
 
 def retrieval_types_phase(torch, np, dev, card, cfg, encoder, cross, corpus, docs, queries, oracle, qb,
@@ -1092,7 +1696,9 @@ def main() -> int:
     k1_case("index scan", 16, 768, 100_000, 64, "int4", "sym", bf16, bf16, bf16)
     # the khalf Llama-2-7B decode products (phase 5's first run)
     for K, N, lbl in ((4096, 4096, "llama qkvo"), (4096, 11008, "llama gate/up"), (11008, 4096, "llama down")):
-        for M in (1, 2, 8, 16):  # the GEMV at M = 1, the tensor-core tiles (16 rows) above
+        # the GEMV at M = 1, the tensor-core tiles (16 rows) above; M = 4 and 5
+        # are phase 5g's beam steps and speculative verify forwards
+        for M in (1, 2, 4, 5, 8, 16):
             k1_case(lbl, M, K, N, 128, "int4", "sym", bf16, bf16, f32)
     k1_case("llama qkvo", 512, 4096, 4096, 128, "int4", "sym", bf16, bf16, f32)  # beside K2 at M = 512
 
@@ -1433,6 +2039,7 @@ def main() -> int:
         for fn in tiled.values():
             fn.tile_launches = 0
         woq_w32_cuda.gemv_launches = woq_w32_cuda.split_gemv_launches = 0
+        woq_int4_cuda.launches_by_m.clear()
 
     def add_counts(phase_name):
         got = {k: fn.launches for k, fn in counters.items()}
@@ -1441,8 +2048,10 @@ def main() -> int:
         tiles = {k: fn.tile_launches for k, fn in tiled.items()}
         for k, n in tiles.items():
             tile_launches[k] += n
-        print(f"{phase_name} launches: {json.dumps(got)}; on the tensor-core tiles: {json.dumps(tiles)}")
-        return {**got, **{k + "_tiles": n for k, n in tiles.items()}}
+        by_m = {m: n for m, n in sorted(woq_int4_cuda.launches_by_m.items())}
+        print(f"{phase_name} launches: {json.dumps(got)}; on the tensor-core tiles: {json.dumps(tiles)}; "
+              f"K1's by M: {json.dumps(by_m)}")
+        return {**got, **{k + "_tiles": n for k, n in tiles.items()}, "woq_int4_by_m": by_m}
 
     # ---- main path, phases 3-4: counts from here to the end of phase 4 ----
     zero_counts()
@@ -1490,10 +2099,10 @@ def main() -> int:
     timed(embedder, "encode", lambda: phase["encode"])
     timed(reranker, "rerank", lambda: "rerank")
     t0 = time.perf_counter()
+    # the corpus is docs/ alone: the top-level *.md files change with every
+    # change to the repository, and with them the prompts and their lengths
     agent.create(os.path.join(ROOT, "docs"))
-    md_files = [p for p in sorted(glob.glob(os.path.join(ROOT, "*.md"))) if os.path.getsize(p)]
-    for path in md_files:
-        agent.append_localdb(path)
+    doc_files = sorted(glob.glob(os.path.join(ROOT, "docs", "**", "*.md"), recursive=True))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     stages["index_add"] = build_s - stages["parse"] - stages["encode_docs"]
@@ -1505,7 +2114,9 @@ def main() -> int:
         prompts.append(agent.pre_llm_inference_actions(q))
     query_s = time.perf_counter() - t0
     n_chunks = len(agent.docs)
-    print(f"rag: {n_chunks} chunks from docs/ and {len(md_files)} *.md; models built in "
+    print(f"rag corpus: docs/, {len(doc_files)} files, {sum(os.path.getsize(p) for p in doc_files)} bytes, "
+          f"{n_chunks} chunks")
+    print(f"rag: {n_chunks} chunks; models built in "
           f"{build_models_s:.1f} s; KB built in {build_s:.2f} s; {len(QUERIES)} queries in {query_s:.2f} s")
     print("rag stages (s): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     print(f"rag prompt lengths (chars): {[len(p) for p in prompts]}")
@@ -1565,7 +2176,7 @@ def main() -> int:
     check(gap <= 1e-3, f"rerank scores agree with the CPU plain path ({gap})")
 
     # ---- phase 3b: bm25 and child_parent agents, int8 and anchored int4 storage, ChatCache ----
-    retrieval_types_phase(torch, np, dev, card, cfg, encoder, cross, [os.path.join(ROOT, "docs")] + md_files,
+    retrieval_types_phase(torch, np, dev, card, cfg, encoder, cross, [os.path.join(ROOT, "docs")],
                           docs, queries, oracle, qb, zero_counts, add_counts)
 
     del index, docs, queries, qb, oracle, cpu_scores
@@ -1724,6 +2335,11 @@ def main() -> int:
     serving_phase(torch, np, dev, card, bot, lcfg, tok, serve_prompts, zero_counts, add_counts)
     print(f"phase 5s in {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 5g: beam search, speculative decoding, the KV policies, serving with a draft (K1) ----
+    gen_modes = generation_modes_phase(torch, np, dev, card, bot, lcfg, tok, QUERIES[0], probe, serve_prompts,
+                                       agent, zero_counts, add_counts)
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     prepare_for_inference(bot.params)
     torch.cuda.synchronize()
@@ -1799,7 +2415,7 @@ def main() -> int:
     print(f"khalf vs w32: greedy tokens agreeing: {agree} of {NEW_TOKENS} (reported, not required)")
 
     # ---- phase 6: scoring, 2048-token windows on the w32 model (K4, K3) ----
-    corpus = "\n".join(open(p, encoding="utf-8").read() for p in md_files)
+    corpus = "\n".join(open(p, encoding="utf-8").read() for p in doc_files)
     ids = tok.encode(corpus, add_bos=False)[: SCORE_WINDOWS * SCORE_WINDOW]
     check(len(ids) == SCORE_WINDOWS * SCORE_WINDOW, f"{len(ids)} byte tokens for the windows")
     zero_counts()
@@ -1999,7 +2615,9 @@ def main() -> int:
          "tile_launches": tile_launches["woq_int4"],
          "gate_up_decode": {key: k1_decode[key] for key in ("M", "K", "N", "ms", "eager_ms", "k3_cold_ms",
                                                              "bound_ms", "bound_by", "library_ms")},
-         "qkvo_tiles": {key: k1_tiles[key] for key in shown}},
+         "qkvo_tiles": {key: k1_tiles[key] for key in shown},
+         "phase_5g_launches_by_m": {name: row["k1_launches_by_m"] for name, row in gen_modes.items()
+                                    if isinstance(row, dict) and "k1_launches_by_m" in row}},
         {**row("woq_int8", "woq_int8.cu", "quant_matmul.py:198", k2_cases, k2_decode),
          "tile_launches": tile_launches["woq_int8"],
          "gate_up_decode": {key: k2_cold[key] for key in ("M", "K", "N", "ms", "eager_ms", "bound_ms", "bound_by")},

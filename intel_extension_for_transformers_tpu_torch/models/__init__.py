@@ -10,6 +10,7 @@ from intel_extension_for_transformers_tpu_torch.models.engine import DecodeEngin
 from intel_extension_for_transformers_tpu_torch.models.generation import (
     SamplingConfig,
     generate,
+    generate_beam,
     generate_compiled,
     generate_stream,
 )
@@ -48,7 +49,7 @@ def __getattr__(name):
 __all__ = [
     "BertConfig", "BertModel", "bert_apply", "bert_config_from_hf", "bert_encode", "bert_init_params",
     "KVCache", "LlamaConfig", "LlamaModel", "init_kv_cache", "llama_apply", "llama_config_from_hf",
-    "llama_init_params", "DecodeEngine", "EngineRequest", "SamplingConfig", "generate", "generate_compiled",
-    "generate_stream",
+    "llama_init_params", "DecodeEngine", "EngineRequest", "SamplingConfig", "generate", "generate_beam",
+    "generate_compiled", "generate_stream",
     *_LAZY,
 ]

@@ -19,10 +19,10 @@ the quantization config, and exposes `__call__`, `generate` /
 
 Every entry point that builds a model runs on the card unless `device`
 names another. HF `transformers` is imported only to load a checkpoint or a
-tokenizer by name (`_load_hf`, `_load_tokenizer`). Not ported yet, and
-raising `NotImplementedError`: beam search (`num_beams > 1`, ROADMAP queue 1
-step 1), the generic decoder families (step 5) and T5 /
-`AutoModelForSeq2SeqLM` (step 10).
+tokenizer by name (`_load_hf`, `_load_tokenizer`). `CausalLM.generate(
+num_beams=N)` runs beam search (`generation.generate_beam`). Not ported
+yet, and raising `NotImplementedError`: the generic decoder families
+(ROADMAP queue 1 step 5) and T5 / `AutoModelForSeq2SeqLM` (step 10).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import torch
 from intel_extension_for_transformers_tpu_torch.models.bert import BertConfig, bert_encode
 from intel_extension_for_transformers_tpu_torch.models.generation import (
     SamplingConfig,
+    generate_beam,
     generate as _generate,
     generate_stream as _generate_stream,
 )
@@ -134,7 +135,15 @@ class CausalLM(_ModelBase):
 
     def generate(self, input_ids, sampling: Optional[SamplingConfig] = None, **kw) -> np.ndarray:
         if kw.get("num_beams", 1) > 1:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, step 1)")
+            # HF-style generate(num_beams=N): beam search
+            ids, _ = generate_beam(
+                self.params, self.config, input_ids,
+                num_beams=int(kw["num_beams"]),
+                max_new_tokens=int(kw.get("max_new_tokens") or (sampling.max_new_tokens if sampling else 32)),
+                length_penalty=float(kw.get("length_penalty", 1.0)),
+                eos_token_id=kw.get("eos_token_id"),
+            )
+            return ids[None]  # (1, n), batch-major as generate returns
         kw.pop("num_beams", None)
         return _generate(self.params, self.config, input_ids, sampling, **kw)
 

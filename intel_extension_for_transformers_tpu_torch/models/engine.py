@@ -1166,8 +1166,11 @@ class DecodeEngine:
                 self._step_admissions()  # the chunks queue behind the dispatch
                 ot, oc = out_tokens.cpu().numpy(), out_count.cpu().numpy()
                 for slot in range(self.max_slots):
-                    if active[slot]:
-                        self._host_len[slot] += int(oc[slot])
+                    # a slot admitted behind this step holds no token of it (the
+                    # JAX package emits the empty row's into the new request)
+                    if not active[slot]:
+                        continue
+                    self._host_len[slot] += int(oc[slot])
                     for j in range(int(oc[slot])):
                         if self._slots[slot] is None:
                             break  # EOS or the limit mid-step: drop the tail

@@ -11,9 +11,15 @@ converted by `hf_convert.llama_params_from_hf` onto the card unless
 `device` names another, with its HF tokenizer), and applies
 `optimization_config` through `quantize_model`.
 
-Not ported yet, and raising `NotImplementedError`: beam search
-(`num_beams > 1`) and an assistant model (speculative decoding), ROADMAP
-queue 1 step 1, and sharding over several cards, step 7.
+Generation takes one of three branches, as in the JAX package: beam search
+(`num_beams > 1` without sampling; the stream is the final ids),
+speculative decoding when the chatbot carries an assistant (draft) model
+and no `kv_policy`, else `generate_stream`, with the chatbot's `kv_policy`
+(H2O or attention sinks) if set. The assistant comes from
+`LoadingModelConfig.assistant_model`: a (model, config) pair, or a
+checkpoint name or path loaded like the chat model. Not ported yet, and
+raising `NotImplementedError`: sharding over several cards, ROADMAP queue 1
+step 7.
 """
 
 from __future__ import annotations
@@ -55,6 +61,9 @@ class BaseModel:
         self.tokenizer = None
         self.generation_config = GenerationConfig()
         self.conv_template = None
+        self.kv_policy = None  # an H2OKVPolicy or AttentionSinkKVPolicy for generate_stream
+        self.assistant = None  # the (model, config) draft for speculative decoding
+        self.spec_k = 4
 
     # -- loading ---------------------------------------------------------
     def load_model(self, kwargs: dict) -> None:
@@ -66,31 +75,37 @@ class BaseModel:
 
         if loading.tensor_parallel > 1 or loading.world_size > 1:
             raise NotImplementedError("sharding a chat model is not ported yet (ROADMAP queue 1, step 7)")
-        if loading.assistant_model is not None:
-            raise NotImplementedError(
-                "speculative decoding with an assistant model is not ported yet (ROADMAP queue 1, step 1)"
-            )
         if loading.preloaded is not None:
             self.params, self.model_config, self.tokenizer = loading.preloaded
         else:
             from intel_extension_for_transformers_tpu_torch.models.auto import _load_hf
-            from intel_extension_for_transformers_tpu_torch.models.hf_convert import (
-                llama_params_from_hf,
-            )
 
-            name = self.model_name
-            try:
-                hf = _load_hf(name, "AutoModelForCausalLM")
-            except (OSError, ValueError) as e:
-                set_latest_error(ErrorCodes.ERROR_MODEL_NOT_FOUND)
-                raise ValueError(f"failed to load model {name!r}: {e}") from e
-            self.params, self.model_config = llama_params_from_hf(
-                hf, device=chat_device(kwargs.get("device"))
-            )
-            self.tokenizer = _load_hf(name, "AutoTokenizer")
+            self.params, self.model_config = self._load_causal_lm(self.model_name, kwargs.get("device"))
+            self.tokenizer = _load_hf(self.model_name, "AutoTokenizer")
         if loading.optimization_config is not None:
             self.params = self.optimize(loading.optimization_config)
+
+        # the speculative-decoding draft: a (model, config) pair, or a checkpoint
+        self.spec_k = loading.spec_k
+        self.assistant = None
+        if isinstance(loading.assistant_model, tuple):
+            self.assistant = loading.assistant_model
+        elif loading.assistant_model is not None:
+            self.assistant = self._load_causal_lm(loading.assistant_model, kwargs.get("device"))
         self.conv_template = get_conv_template(self.model_name)
+
+    @staticmethod
+    def _load_causal_lm(name: str, device):
+        """An HF Llama-family checkpoint by name or path → (LlamaModel, LlamaConfig)."""
+        from intel_extension_for_transformers_tpu_torch.models.auto import _load_hf
+        from intel_extension_for_transformers_tpu_torch.models.hf_convert import llama_params_from_hf
+
+        try:
+            hf = _load_hf(name, "AutoModelForCausalLM")
+        except (OSError, ValueError) as e:
+            set_latest_error(ErrorCodes.ERROR_MODEL_NOT_FOUND)
+            raise ValueError(f"failed to load model {name!r}: {e}") from e
+        return llama_params_from_hf(hf, device=chat_device(device))
 
     def optimize(self, optimization_config):
         from intel_extension_for_transformers_tpu_torch.quantization import quantize_model
@@ -162,21 +177,12 @@ class BaseModel:
         # the retrieval plugin returns a full prompt; otherwise apply the template
         if prompt == query:
             prompt = self.prepare_prompt(query, config.task)
-        if getattr(config, "num_beams", 1) > 1 and not config.do_sample:
-            raise NotImplementedError("beam search is not ported yet (ROADMAP queue 1, step 1)")
 
-        from intel_extension_for_transformers_tpu_torch.models.generation import (
-            detokenize_stream,
-            generate_stream,
-        )
+        from intel_extension_for_transformers_tpu_torch.models.generation import detokenize_stream
 
         ids = self._encode_prompt(prompt)
-        sampling = config.to_sampling_config(self._eos_id)
         try:
-            token_iter = generate_stream(
-                self.params, self.model_config, ids, sampling,
-                max_cache_length=config.cache_max_length, seed=config.seed,
-            )
+            token_iter = self._token_iter(ids, config)
             pieces = []
             for delta in detokenize_stream(token_iter, self.tokenizer):
                 pieces.append(delta)
@@ -193,6 +199,31 @@ class BaseModel:
             set_latest_error(ErrorCodes.ERROR_GENERATION_FAIL)
             logger.exception("generation failed")
             raise
+
+    def _token_iter(self, ids: np.ndarray, config: GenerationConfig) -> Iterator[np.ndarray]:
+        """(1,) token ids one at a time: beam search (the final ids), the
+        assistant's speculative rounds, or the plain stream (with the
+        chatbot's kv_policy)."""
+        from intel_extension_for_transformers_tpu_torch.models import generation, speculative
+
+        sampling = config.to_sampling_config(self._eos_id)
+        if getattr(config, "num_beams", 1) > 1 and not config.do_sample:
+            beam_ids, _ = generation.generate_beam(
+                self.params, self.model_config, ids, num_beams=config.num_beams,
+                max_new_tokens=config.max_new_tokens, eos_token_id=self._eos_id,
+            )
+            return (np.asarray([t], np.int32) for t in beam_ids)
+        if self.assistant is not None and self.kv_policy is None:
+            d_model, d_config = self.assistant
+            chunks = speculative.generate_speculative_stream(
+                self.params, self.model_config, d_model, d_config, ids, sampling,
+                spec_k=self.spec_k, seed=config.seed,
+            )
+            return (np.asarray([t], np.int32) for chunk in chunks for t in chunk.reshape(-1))
+        return generation.generate_stream(
+            self.params, self.model_config, ids, sampling,
+            max_cache_length=config.cache_max_length, seed=config.seed, kv_policy=self.kv_policy,
+        )
 
 
 # -- adapter registry -------------------------------------------------------

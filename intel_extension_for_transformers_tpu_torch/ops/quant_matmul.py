@@ -321,11 +321,13 @@ def woq_int4_cuda(
     check(status, "itx_woq_int4")
     woq_int4_cuda.launches += 1
     woq_int4_cuda.tile_launches += route == "tiles"
+    woq_int4_cuda.launches_by_m[M] = woq_int4_cuda.launches_by_m.get(M, 0) + 1
     return out
 
 
 woq_int4_cuda.launches = 0
 woq_int4_cuda.tile_launches = 0  # the launches of the tensor-core tiles among them
+woq_int4_cuda.launches_by_m = {}  # M → the launches at that many rows
 
 # K2 runs its split-K GEMV (which takes up to 8 rows) up to this many rows,
 # tiles above (PERF.md)

@@ -150,7 +150,11 @@ def _encode_residual(v, cent_rows, group_size: int, bits: int):
     G = D // group_size
     qmax = 7 if bits == 4 else 127
     r = (v.to(torch.float32) - cent_rows.to(torch.float32)).reshape(M, G, group_size)
-    scale = torch.amax(torch.abs(r), dim=-1) / qmax
+    amax = torch.amax(torch.abs(r), dim=-1)
+    # a tensor divisor: on the card torch turns a division by a Python
+    # scalar into a product with its f32 reciprocal, which differs in the
+    # last bit for some rows; the JAX package's eager encoder divides
+    scale = amax / torch.full_like(amax, float(qmax))
     q = torch.clamp(torch.round(r / torch.clamp_min(scale[..., None], 1e-12)), -qmax - 1, qmax)
     q = q.to(torch.int32).reshape(M, D)
     codes = _pack_pairs(q) if bits == 4 else q.to(torch.int8)

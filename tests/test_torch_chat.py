@@ -158,7 +158,8 @@ def test_generation_config_defaults_match_jax():
 def test_unported_branches_raise(models):
     """Branches that wait for later steps raise and say so; an unknown plugin
     returns None with the JAX package's error code. (Loading a checkpoint and
-    the model-free plugins are ported: tests/test_torch_retrieval_types.py.)"""
+    the model-free plugins are ported: tests/test_torch_retrieval_types.py;
+    beam search and the assistant model: the tests below.)"""
     _, model = models["float"]
     preloaded = (model, TCFG, ByteTokenizer())
     assert build_chatbot(PipelineConfig(
@@ -167,12 +168,81 @@ def test_unported_branches_raise(models):
     with pytest.raises(NotImplementedError, match="step 10"):
         build_chatbot(PipelineConfig(loading_config=LoadingModelConfig(preloaded=preloaded),
                                      plugins={"asr": {}}))
-    for kw in (dict(assistant_model=(model, TCFG)), dict(tensor_parallel=2)):
-        with pytest.raises(NotImplementedError):
-            build_chatbot(PipelineConfig(loading_config=LoadingModelConfig(preloaded=preloaded, **kw)))
-    bot = build_chatbot(PipelineConfig(loading_config=LoadingModelConfig(preloaded=preloaded)))
-    with pytest.raises(NotImplementedError, match="beam"):
-        bot.predict(QUERY, GenerationConfig(num_beams=2, do_sample=False))
+    with pytest.raises(NotImplementedError, match="step 7"):
+        build_chatbot(PipelineConfig(loading_config=LoadingModelConfig(preloaded=preloaded, tensor_parallel=2)))
+
+
+@pytest.mark.parametrize("weights", ["float", "khalf"])
+def test_beam_search_chat_matches_jax(models, weights):
+    """Tolerance: none. predict with num_beams=2 (greedy) gives the JAX
+    package's text; on the khalf model the JAX side runs its Pallas kernel
+    in interpret mode."""
+    jbot, tbot = _bots(*models[weights])
+    cfg = dict(GREEDY, num_beams=2, max_new_tokens=8)
+    want = jbot.predict(QUERY, JGen(**cfg))
+    assert want and tbot.predict(QUERY, GenerationConfig(**cfg)) == want
+
+
+def test_assistant_model_speculative_chat_matches_jax(models):
+    """Tolerance: none. With an assistant (draft) model, a (model, config)
+    pair, greedy text equals the JAX chatbot's with the same draft and the
+    plain chatbot's; the draft here is the target itself, so every draft
+    token is kept, and a second, unrelated draft changes nothing."""
+    params, model = models["float"]
+    plain = _bots(params, model)[1].predict(QUERY)
+    reset_plugins()
+    jreset()
+    draft_j = jllama.llama_init_params(jax.random.PRNGKey(9), JCFG)
+    draft_t = bridge.llama_from_numpy(tree_to_numpy(draft_j), TCFG, device="cpu")
+    for jd, td in (((params, JCFG), (model, TCFG)), ((draft_j, JCFG), (draft_t, TCFG))):
+        jbot = jbuild(JPipe(
+            model_name_or_path="tiny-llama-test",
+            loading_config=JLoad(preloaded=(params, JCFG, JByteTokenizer()), assistant_model=jd, spec_k=3),
+            generation_config=JGen(**GREEDY)))
+        tbot = build_chatbot(PipelineConfig(
+            model_name_or_path="tiny-llama-test",
+            loading_config=LoadingModelConfig(preloaded=(model, TCFG, ByteTokenizer()), assistant_model=td,
+                                              spec_k=3),
+            generation_config=GenerationConfig(**GREEDY)))
+        assert tbot.assistant == td and tbot.spec_k == 3
+        want = jbot.predict(QUERY)
+        assert want == plain and tbot.predict(QUERY) == want
+
+
+def test_assistant_model_by_name_loads_a_checkpoint(models, monkeypatch):
+    """An assistant named by path goes through `_load_hf` and
+    `llama_params_from_hf`, as the chat model does."""
+    from intel_extension_for_transformers_tpu_torch.models import auto
+    from intel_extension_for_transformers_tpu_torch.neural_chat import base_model
+
+    _, model = models["float"]
+    seen = []
+    monkeypatch.setattr(auto, "_load_hf", lambda name, kind: seen.append((name, kind)) or "hf-object")
+    import intel_extension_for_transformers_tpu_torch.models.hf_convert as hf_convert
+
+    monkeypatch.setattr(hf_convert, "llama_params_from_hf", lambda hf, device=None: (model, TCFG))
+    bot = base_model.BaseModel("tiny")
+    bot.load_model({"loading_config": LoadingModelConfig(preloaded=(model, TCFG, ByteTokenizer()),
+                                                         assistant_model="some/draft-checkpoint"),
+                    "device": "cpu"})
+    assert seen == [("some/draft-checkpoint", "AutoModelForCausalLM")] and bot.assistant == (model, TCFG)
+
+
+@pytest.mark.parametrize("which", ["h2o", "sink"])
+def test_kv_policy_chat_matches_jax(models, which):
+    """Tolerance: none. A chatbot's kv_policy bounds the cache below the
+    prompt + answer (evictions while decoding): the same greedy text."""
+    from intel_extension_for_transformers_tpu.models import kv_policies as jkv
+    from intel_extension_for_transformers_tpu_torch.models import kv_policies as tkv
+
+    jbot, tbot = _bots(*models["float"])
+    n = len(jbot._encode_prompt(jbot.prepare_prompt(QUERY))[0]) + 4
+    jbot.kv_policy, tbot.kv_policy = ((jkv.H2OKVPolicy(budget=n, recent_size=3), tkv.H2OKVPolicy(budget=n, recent_size=3))
+                                      if which == "h2o" else
+                                      (jkv.AttentionSinkKVPolicy(budget=n, sink_size=2),
+                                       tkv.AttentionSinkKVPolicy(budget=n, sink_size=2)))
+    want = jbot.predict(QUERY)
+    assert want and tbot.predict(QUERY) == want
 
 
 def test_optimize_model_quantizes_in_place():

@@ -76,11 +76,13 @@ def test_woq_int4_gemv_matches_plain(dev, monkeypatch, N, weight_dtype, scheme, 
     qt = packing.quantize_groupwise(torch.randn(K, N, device=dev, generator=gen) * 0.02, weight_dtype, scheme, 128)
     assert -(-(K // 2) // quant_matmul.int4_k_chunk(N, K, 128, quant_matmul.target_blocks(dev.index))) > 1
     before = quant_matmul.woq_int4_cuda.launches
+    at_m = quant_matmul.woq_int4_cuda.launches_by_m.get(M, 0)
     got = quant_matmul.woq_int4_cuda(x, qt, dtype)
     again = quant_matmul.woq_int4_cuda(x, qt, dtype)
     want = quant_matmul.woq_matmul_plain(x, qt, dtype)
     torch.cuda.synchronize()
     assert quant_matmul.woq_int4_cuda.launches == before + 2
+    assert quant_matmul.woq_int4_cuda.launches_by_m[M] == at_m + 2
     assert got.dtype == dtype and got.shape == (M, N)
     assert torch.equal(got, again)
     assert _rel(got, want) <= tol
@@ -1039,3 +1041,30 @@ def test_ivf_index_kernel_route_matches_materializing_route(dev):
             assert (got[1] >= 0).all()
             continue
         _assert_ivf_match([torch.from_numpy(a) for a in got], [torch.from_numpy(a) for a in want], IVF_TOL)
+
+
+@pytest.mark.parametrize("bits", [4, 8, "split"])
+def test_ivf_encode_residual_divides_truly_on_the_card(dev, bits):
+    """The IVF residual codec on the card against a numpy encoder that
+    divides truly in f32, bit for bit: on rows where a / qmax and
+    a * (1 / qmax) differ (where codes then differ), and on 4,096 random
+    residual rows of D = 768 in groups of 32."""
+    from torch_port_util import division_probe, np_encode_residual
+
+    from intel_extension_for_transformers_tpu_torch.retrieval import ivf
+
+    qmax = 7 if bits == 4 else 127
+    rng = np.random.default_rng(5)
+    for v, cent, gs in (
+        (division_probe(qmax, 32, 64, seed=4), None, 32),
+        (rng.normal(size=(4096, 768)).astype(np.float32), rng.normal(size=(4096, 768)).astype(np.float32), 32),
+    ):
+        cent = np.zeros_like(v) if cent is None else cent
+        tv, tc = torch.from_numpy(v).to(dev), torch.from_numpy(cent).to(dev)
+        if bits == "split":
+            got = ivf._encode_residual_split(tv, tc, gs)
+        else:
+            got = ivf._encode_residual(tv, tc, gs, bits)
+        got = [a.cpu().numpy() for a in got[:-1]] + [got[-1].view(torch.int16).cpu().numpy().view(np.uint16)]
+        for g, w in zip(got, np_encode_residual(v, cent, gs, bits)):
+            np.testing.assert_array_equal(g, w)

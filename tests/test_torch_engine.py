@@ -285,6 +285,26 @@ def test_speculation_self_draft_exact_in_fewer_steps(tiny):
             e.stop()
 
 
+def test_speculation_admissions_behind_a_step_stay_exact(tiny):
+    """Prompts of several chunks admitted while other slots speculate: each
+    request's greedy tokens equal plain greedy decoding. A slot admitted
+    behind a pool step holds none of that step's tokens (the JAX engine
+    emitted the empty row's into the new request, so it is not compared
+    here; its own tests admit one prompt at a time)."""
+    params, model = tiny
+    dparams = jllama.llama_init_params(jax.random.PRNGKey(7), JCFG)
+    dmodel = llama_from_numpy(tree_to_numpy(dparams), TCFG, device="cpu")
+    prompts = [np.random.default_rng(i).integers(1, 250, size=20 + 9 * i).astype(np.int32) for i in range(4)]
+    eng = tengine.DecodeEngine(model, TCFG, device="cpu", max_slots=4, max_len=128, prefill_chunk=16,
+                               draft_model=dmodel, draft_config=TCFG, num_speculative_tokens=3).start()
+    try:
+        got = _serve(eng, tengine, prompts, max_new_tokens=10)
+    finally:
+        eng.stop()
+    for p, toks in zip(prompts, got):
+        np.testing.assert_array_equal(np.array(toks), generate(params, JCFG, p, SamplingConfig(max_new_tokens=10))[0])
+
+
 def test_speculation_adversarial_draft_still_exact(tiny):
     dparams = jllama.llama_init_params(jax.random.PRNGKey(123), JCFG)
     draft = (dparams, llama_from_numpy(tree_to_numpy(dparams), TCFG, device="cpu"))

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import assert_ids_match, ivf_state
+from torch_port_util import assert_ids_match, division_probe, ivf_state, np_encode_residual
 
 from intel_extension_for_transformers_tpu.retrieval import ivf as jivf
 from intel_extension_for_transformers_tpu_torch import bridge
@@ -98,6 +98,33 @@ def test_split_codec_is_bit_identical(corpus):
     # and it is the int8 codec's decode, bit for bit
     c8, s8 = tivf._encode_residual(_t(v), _t(cent), GS, 8)
     np.testing.assert_array_equal(got, tivf._decode_residual(c8, s8, GS, 8).float().numpy())
+
+
+@pytest.mark.parametrize("bits", [4, 8, "split"])
+def test_encode_residual_divides_truly(bits):
+    """The scale is max|r| / qmax, a true f32 division, in the JAX package's
+    eager encoder and in the port. Rows are drawn (from a seed, in numpy)
+    where a / qmax and a * (1 / qmax) differ in the last bit and codes move
+    with it: codes and bf16 scales must equal a numpy encoder that divides,
+    and the codes must differ from one that takes the reciprocal. Tolerance:
+    none (bit for bit)."""
+    qmax = 7 if bits == 4 else 127
+    v = division_probe(qmax, GS, 16, seed=3)
+    cent = np.zeros_like(v)
+    want = np_encode_residual(v, cent, GS, bits)
+    recip = np.round(v / (v[:, :1] * (np.float32(1) / np.float32(qmax))))
+    assert (recip != np.round(v / (v[:, :1] / np.float32(qmax)))).any(axis=1).all()
+    if bits == "split":
+        jax_out = jivf._encode_residual_split(jnp.asarray(v), jnp.asarray(cent), GS)
+        port_out = tivf._encode_residual_split(_t(v), _t(cent), GS)
+    else:
+        jax_out = jivf._encode_residual(jnp.asarray(v), jnp.asarray(cent), GS, bits)
+        port_out = tivf._encode_residual(_t(v), _t(cent), GS, bits)
+    jax_np = [np.asarray(a) for a in jax_out[:-1]] + [np.asarray(jax_out[-1]).view(np.uint16)]
+    port_np = [a.numpy() for a in port_out[:-1]] + [port_out[-1].view(torch.int16).numpy().view(np.uint16)]
+    for got_j, got_t, w in zip(jax_np, port_np, want):
+        np.testing.assert_array_equal(got_j, w)
+        np.testing.assert_array_equal(got_t, w)
 
 
 def test_segment_rank_is_exact():

@@ -24,8 +24,10 @@ SLICE_MODULES = [
     "intel_extension_for_transformers_tpu_torch.models.engine",
     "intel_extension_for_transformers_tpu_torch.models.generation",
     "intel_extension_for_transformers_tpu_torch.models.hf_convert",
+    "intel_extension_for_transformers_tpu_torch.models.kv_policies",
     "intel_extension_for_transformers_tpu_torch.models.llama",
     "intel_extension_for_transformers_tpu_torch.models.registry",
+    "intel_extension_for_transformers_tpu_torch.models.speculative",
     "intel_extension_for_transformers_tpu_torch.models.tokenization",
     "intel_extension_for_transformers_tpu_torch.native",
     "intel_extension_for_transformers_tpu_torch.neural_chat",

@@ -123,9 +123,10 @@ def test_int4_k_chunk_llama_plans():
 
 def test_int4_on_a_cpu_tensor_never_launches_k1():
     x, _, tq = _operands(3, "int4", "sym", seed=4)
-    before = tqm.woq_int4_cuda.launches
+    before, by_m = tqm.woq_int4_cuda.launches, dict(tqm.woq_int4_cuda.launches_by_m)
     tqm.woq_matmul(torch.from_numpy(x), tq)
     assert tqm.woq_int4_cuda.launches == before
+    assert tqm.woq_int4_cuda.launches_by_m == by_m
     with pytest.raises(ValueError, match="CUDA device"):
         tqm.woq_int4_cuda(torch.from_numpy(x), tq, torch.float32)
 

@@ -187,6 +187,40 @@ def test_engine_concurrent_streams(servers):
     assert ex.engine.stats()["decode_steps"] - steps0 < 6 * 6
 
 
+def test_engine_with_an_assistant_speculates_as_jax(servers):
+    """A chatbot with an assistant (draft) model builds its engine with the
+    draft (in-pool speculation); greedy chat text over HTTP equals the JAX
+    server's with the same draft and the port's engine without one."""
+    jcfg, tcfg = jllama.LlamaConfig.tiny(**KW), tllama.LlamaConfig.tiny(**KW)
+    dkw = dict(KW, num_hidden_layers=1)
+    jdcfg, tdcfg = jllama.LlamaConfig.tiny(**dkw), tllama.LlamaConfig.tiny(**dkw)
+    params = jllama.llama_init_params(jax.random.PRNGKey(0), jcfg)
+    draft = jllama.llama_init_params(jax.random.PRNGKey(5), jdcfg)
+    model = llama_from_numpy(tree_to_numpy(params), tcfg, device="cpu")
+    tdraft = llama_from_numpy(tree_to_numpy(draft), tdcfg, device="cpu")
+    out = {}
+    for key, make, pre, assistant, extra in (
+        ("jax", JExecutor, (params, jcfg, JByteTokenizer()), (draft, jdcfg), {}),
+        ("torch", NeuralChatServerExecutor, (model, tcfg, ByteTokenizer()), (tdraft, tdcfg), {"device": "cpu"}),
+    ):
+        ex = make()
+        cfg = _config("tiny-llama", pre, SERVING, tasks_list=["textchat"], **extra)
+        cfg["loading_config"] = {**cfg["loading_config"], "assistant_model": assistant}
+        assert ex.init(cfg)
+        ex.run(block=False)
+        try:
+            assert getattr(ex.engine, "draft_model" if key == "torch" else "draft_params") is assistant[0]
+            status, body = _post(ex.port, "/v1/chat/completions", CHAT)
+            assert status == 200
+            out[key] = (body["choices"][0]["message"]["content"], ex.engine.stats())
+        finally:
+            ex.stop()
+    text, stats = out["torch"]
+    assert stats["speculative"] and stats["decode_steps"] > 0
+    plain = _post(servers["torch"][1].port, "/v1/chat/completions", CHAT)[1]["choices"][0]["message"]["content"]
+    assert text == out["jax"][0] == plain
+
+
 def test_guided_choice_over_http_matches_jax(servers):
     body = {"messages": [{"role": "user", "content": "Is the sky blue?"}], "guided_choice": ["yes", "no"],
             "max_tokens": 16}

@@ -1,6 +1,14 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py)."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
+
+# the numpy IVF residual codec is chip_smoke.py's own, so one reference
+# decides the card's check and the tests'
+sys.path.append(str(Path(__file__).resolve().parents[1]))
+from chip_smoke import np_encode_residual  # noqa: E402,F401
 
 
 def tree_to_numpy(tree):
@@ -108,3 +116,35 @@ def ivf_state(jidx):
         "refine": jidx.refine, "refine_capacity": jidx.refine_capacity,
     }
     return meta, arrays
+
+
+def reciprocal_differs(qmax, n, seed=0):
+    """n f32 values a > 0 drawn from `seed` where a / qmax and a * (1 / qmax)
+    (the f32 reciprocal) differ, as numpy computes both in f32."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.05, 2.0, size=64 * n).astype(np.float32)
+    differ = a / np.float32(qmax) != a * (np.float32(1) / np.float32(qmax))
+    assert differ.sum() >= n, f"only {differ.sum()} of {a.size} draws differ"
+    return a[differ][:n]
+
+
+def division_probe(qmax, group_size, rows, seed=0):
+    """(M, D) residual rows whose group maxima a are `reciprocal_differs`
+    values, each group's other entries placed where round(x / s) differs
+    between s = a / qmax and s = a * (1 / qmax): codes of an encoder that
+    divides truly differ there from one that takes the reciprocal."""
+    a = reciprocal_differs(qmax, rows, seed)
+    out = np.zeros((rows, group_size), np.float32)
+    for i, ai in enumerate(a):
+        s_true = ai / np.float32(qmax)
+        s_recip = ai * (np.float32(1) / np.float32(qmax))
+        out[i, 0] = ai
+        j = 1
+        for k in range(qmax):  # x near (k + 1/2) * s, nudged an ulp at a time
+            x = np.float32((k + 0.5) * float(s_true))
+            for _ in range(8):
+                if j < group_size and np.round(x / s_true) != np.round(x / s_recip) and abs(x) < ai:
+                    out[i, j] = x
+                    j += 1
+                x = np.nextafter(x, np.float32(np.inf))
+    return out
